@@ -1,0 +1,824 @@
+"""Batched KV-cache greedy/sampling decode for Whisper, in PyTorch.
+
+The port of the JAX package's ``models/whisper/decode.py`` on this
+slice's path: special tokens and suppress lists, the KV cache (with the
+int4 nibble-packed cross cache), the cached decoder forward, Whisper's
+logit rules, the greedy/sampling loop with best_of ranking, language
+detection, and the host-side seek and segment helpers.
+
+Differences in idiom from the JAX version:
+  * The self-attention cache is head-major, (L, B, H, T_max, Dh), so the
+    per-step attention matmuls read it without a transposing copy, and it
+    is written IN PLACE (the JAX version's dynamic_update_slice returns a
+    new array), which saves a copy of the cache per step.
+  * The token loop is a Python loop that stops once every row has emitted
+    EOT (the JAX package's lax.while_loop condition).  The outputs are the
+    same: the JAX loop's extra final forward produces logits nobody reads.
+  * Sampling at T > 0 draws from a ``torch.Generator`` seeded from
+    ``rng_seed``; its numbers differ from ``jax.random``'s.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...ops.kernels.decode_attention import (
+    cross_attention_int4_stacked,
+    pack_int4_time,
+)
+from .config import WhisperConfig
+from .model import Params, layer, layer_norm, linear, merge_heads, mlp, split_heads
+
+NEG_INF = float("-inf")
+
+
+# ---------------------------------------------------------------------------
+# Special-token layout (derived from vocab size — no vocab file needed)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SpecialTokens:
+    """Whisper special-token ids, derived from the vocabulary size.
+
+    Multilingual vocab (>=51865): text tokens end at 50257 (GPT-2 vocab),
+    then eot, sot, language tokens, task tokens, timestamps.  The .en models
+    are shifted down by one (50256-base).
+    """
+
+    eot: int
+    sot: int
+    lang_begin: int
+    num_languages: int
+    translate: int
+    transcribe: int
+    startoflm: int
+    startofprev: int
+    no_speech: int
+    no_timestamps: int
+    timestamp_begin: int
+    n_vocab: int
+
+    @classmethod
+    def for_config(cls, cfg: WhisperConfig) -> "SpecialTokens":
+        if cfg.n_vocab >= 51865:
+            eot = 50257
+            num_languages = cfg.n_vocab - 51765 - 1  # 99 (v2) or 100 (v3)
+        elif cfg.n_vocab == 51864:
+            eot = 50256
+            num_languages = 99
+        else:  # tiny test vocabs: reserve the tail of the vocab
+            num_languages = 2
+            eot = cfg.n_vocab - (num_languages + 10 + 16)
+        sot = eot + 1
+        lang_begin = sot + 1
+        translate = lang_begin + num_languages
+        transcribe = translate + 1
+        startoflm = transcribe + 1
+        startofprev = startoflm + 1
+        no_speech = startofprev + 1
+        no_timestamps = no_speech + 1
+        timestamp_begin = no_timestamps + 1
+        return cls(
+            eot=eot,
+            sot=sot,
+            lang_begin=lang_begin,
+            num_languages=num_languages,
+            translate=translate,
+            transcribe=transcribe,
+            startoflm=startoflm,
+            startofprev=startofprev,
+            no_speech=no_speech,
+            no_timestamps=no_timestamps,
+            timestamp_begin=timestamp_begin,
+            n_vocab=cfg.n_vocab,
+        )
+
+    def sot_sequence(
+        self, language: int | None = None, task: str = "transcribe",
+        timestamps: bool = True,
+    ) -> list[int]:
+        seq = [self.sot]
+        if self.n_vocab >= 51865:
+            seq.append(self.lang_begin if language is None else self.lang_begin + language)
+            seq.append(self.transcribe if task == "transcribe" else self.translate)
+        if not timestamps:
+            seq.append(self.no_timestamps)
+        return seq
+
+
+# ---------------------------------------------------------------------------
+# Standard suppress list (openai-whisper's SuppressTokens default)
+# ---------------------------------------------------------------------------
+
+_NON_SPEECH_SYMBOLS = list('"#()*+/:;<=>@[\\]^_`{|}~「」『』') + (
+    "<< >> <<< >>> -- --- -( -[ (' (\" (( )) ((( ))) [[ ]] {{ }} ♪♪ ♪♪♪".split()
+)
+_MISC_SYMBOLS = set("♩♪♫♬♭♮♯")
+
+
+def non_speech_token_ids(tokenizer) -> list[int]:
+    """Token ids of non-speech annotation symbols (openai's list)."""
+    ids: set[int] = set()
+    for prefix in (" -", " '"):
+        toks = tokenizer.encode(prefix)
+        if toks:
+            ids.add(toks[0])
+    for symbol in _NON_SPEECH_SYMBOLS + list(_MISC_SYMBOLS):
+        for variant in (symbol, " " + symbol):
+            toks = tokenizer.encode(variant)
+            if len(toks) == 1:
+                ids.add(toks[0])
+            elif toks and symbol in _MISC_SYMBOLS:
+                ids.add(toks[0])
+    return sorted(ids)
+
+
+def always_suppressed_specials(st: SpecialTokens) -> list[int]:
+    """The special ids openai suppresses regardless of suppress_tokens."""
+    return [st.sot, st.translate, st.transcribe, st.startoflm,
+            st.startofprev, st.no_speech]
+
+
+def build_suppress_mask(tokenizer, st: SpecialTokens) -> np.ndarray:
+    """(V,) bool mask of always-suppressed ids: non-speech symbols +
+    sot/task/lm/prev/nospeech specials."""
+    mask = np.zeros(st.n_vocab, bool)
+    for t in always_suppressed_specials(st) + non_speech_token_ids(tokenizer):
+        if 0 <= t < st.n_vocab:
+            mask[t] = True
+    return mask
+
+
+def space_blank_token_id(tokenizer, st: SpecialTokens) -> int | None:
+    """Id of the " " token for the SuppressBlank rule (first sample)."""
+    toks = tokenizer.encode(" ")
+    if toks and 0 <= toks[0] < st.n_vocab:
+        return int(toks[0])
+    return None
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Cache:
+    self_k: torch.Tensor  # (L, B, H, T_max, Dh), written in place
+    self_v: torch.Tensor
+    # float: (L, B, Ta, H, Dh); int8: (L, B, Ta, H, Dh); int4 kernel
+    # layout: K (L, B, H, Dh, Tpad/2), V (L, B, H, Tpad/2, Dh)
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    cross_k_scale: torch.Tensor | None = None  # (L, B, 1, H, Dh)
+    cross_v_scale: torch.Tensor | None = None
+
+
+def _cross_kv(bp: Params, cfg: WhisperConfig, audio_states: torch.Tensor):
+    """One decoder layer's cross K/V over the encoder states: (B, Ta, H, Dh)."""
+    k = split_heads(linear(bp["cross_attn"]["k"], audio_states), cfg.n_text_head)
+    v = split_heads(linear(bp["cross_attn"]["v"], audio_states), cfg.n_text_head)
+    return k, v
+
+
+def precompute_cross_attn(
+    params: Params, cfg: WhisperConfig, audio_states: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V over encoder states for every decoder layer: (L, B, Ta, H, Dh)."""
+    blocks = params["decoder"]["blocks"]
+    kv = [_cross_kv(layer(blocks, l), cfg, audio_states) for l in range(cfg.n_text_layer)]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def _quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(layer, batch, head, channel) symmetric int8/int4 over time
+    (axis 2 of (L, B, T, H, Dh)).  torch.round rounds half to even, as
+    jnp.round does."""
+    qmax = 127.0 if bits == 8 else 7.0
+    amax = x.abs().amax(dim=2, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
+    return q, scale.float()
+
+
+def init_cache(
+    params: Params,
+    cfg: WhisperConfig,
+    audio_states: torch.Tensor,
+    max_len: int,
+    dtype: torch.dtype = torch.float32,
+    quantize_cross_kv: bool = False,
+    kernel_layout: bool = False,
+    kv_bits: int = 8,
+) -> Cache:
+    """Preallocate the self cache and precompute the cross cache.
+
+    quantize_cross_kv: int8 per (layer, batch, head, channel); with
+    kernel_layout and kv_bits=4 the cache is transposed, padded to
+    Tpad = ceil(Ta/128)*128 and nibble-packed for the int4 kernel.  The
+    quantized cache is built one layer at a time, so the float K/V of only
+    one layer is live at once (the result equals quantizing the stack).
+    """
+    b = audio_states.shape[0]
+    n_layer, h = cfg.n_text_layer, cfg.n_text_head
+    dh = cfg.n_text_state // h
+    dev = audio_states.device
+    shape = (n_layer, b, h, max_len, dh)
+    self_k = torch.zeros(shape, dtype=dtype, device=dev)
+    self_v = torch.zeros(shape, dtype=dtype, device=dev)
+    audio = audio_states.to(dtype)
+    if not quantize_cross_kv:
+        ck, cv = precompute_cross_attn(params, cfg, audio)
+        return Cache(self_k, self_v, ck.to(dtype), cv.to(dtype))
+    if kernel_layout and kv_bits not in (4,):
+        raise NotImplementedError(
+            "the int8 kernel-layout cross cache (the int8 decode kernel) is "
+            "not ported yet; use kv_bits=4, or kernel_layout=False for int8"
+        )
+    bits = kv_bits if kernel_layout else 8
+    ta = audio.shape[1]
+    tpad = ta + (-ta) % 128
+    if kernel_layout:
+        ck = torch.empty((n_layer, b, h, dh, tpad // 2), dtype=torch.int8, device=dev)
+        cv = torch.empty((n_layer, b, h, tpad // 2, dh), dtype=torch.int8, device=dev)
+    else:
+        ck = torch.empty((n_layer, b, ta, h, dh), dtype=torch.int8, device=dev)
+        cv = torch.empty_like(ck)
+    ks = torch.empty((n_layer, b, 1, h, dh), dtype=torch.float32, device=dev)
+    vs = torch.empty_like(ks)
+    blocks = params["decoder"]["blocks"]
+    for l in range(n_layer):
+        k, v = _cross_kv(layer(blocks, l), cfg, audio)
+        k8, ks[l] = _quantize_kv(k[None].float(), bits=bits)
+        v8, vs[l] = _quantize_kv(v[None].float(), bits=bits)
+        k8, v8 = k8[0], v8[0]
+        if kernel_layout:
+            pad = tpad - ta
+            k8 = torch.nn.functional.pad(k8.permute(0, 2, 3, 1), (0, pad))  # (B,H,Dh,Tpad)
+            v8 = torch.nn.functional.pad(v8.permute(0, 2, 1, 3), (0, 0, 0, pad))  # (B,H,Tpad,Dh)
+            k8, v8 = pack_int4_time(k8, v8)
+        ck[l] = k8
+        cv[l] = v8
+    return Cache(self_k, self_v, ck, cv, ks, vs)
+
+
+# ---------------------------------------------------------------------------
+# Cached decoder forward (prefill with T>1, or single-step with T=1)
+# ---------------------------------------------------------------------------
+
+def _cached_attention(q, kh, vh, t_valid=None):
+    """q (B,T,H,Dh) against head-major keys/values kh, vh (B,H,Tk,Dh).
+    t_valid: (T,) how many cache positions each query sees (causality
+    inside the prefill window); None = all of them.  Scores are softmaxed
+    in float32."""
+    dh = q.shape[-1]
+    qh = q.transpose(1, 2)  # (B, H, T, Dh)
+    scores = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(dh))
+    if t_valid is not None:
+        pos = torch.arange(kh.shape[2], device=q.device)
+        mask = pos[None, :] < t_valid[:, None]  # (T, Tk)
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(q.dtype), vh)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def decoder_forward_cached(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,  # (B, T)
+    cache: Cache,
+    pos: int,  # write offset into the self cache
+    *,
+    compute_dtype: torch.dtype | None = None,
+    kernel_layout: bool = False,
+    logit_positions: tuple[int, ...] | None = None,
+    unembed: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, Cache]:
+    """Run the decoder over T new tokens, writing their K/V into the cache
+    at ``pos`` (in place).  Returns (logits (B, T', V) float32, cache).
+
+    kernel_layout: the quantized cross cache is in the int4 kernel layout
+    (init_cache's kernel_layout); it is read through kernel B.
+    logit_positions: unembed only these token positions (the prefill reads
+    the sot slot and the last position).
+    unembed: the token embedding in float32, when the caller holds one
+    across steps (greedy_decode converts it once per decode).
+    """
+    p = params["decoder"]
+    b, t = tokens.shape
+    dtype = compute_dtype if compute_dtype is not None else cache.self_k.dtype
+    x = p["token_emb"][tokens].to(dtype) + p["pos_emb"][pos : pos + t].to(dtype)
+    t_valid = pos + torch.arange(t, device=tokens.device) + 1
+    quantized = cache.cross_k_scale is not None
+    n_head = cfg.n_text_head
+    for l in range(cfg.n_text_layer):
+        bp = layer(p["blocks"], l)
+        # --- causal self-attention against the running cache
+        xn = layer_norm(bp["attn_ln"], x)
+        q = split_heads(linear(bp["attn"]["q"], xn), n_head)
+        k_new = split_heads(linear(bp["attn"]["k"], xn), n_head)
+        v_new = split_heads(linear(bp["attn"]["v"], xn), n_head)
+        cache.self_k[l, :, :, pos : pos + t] = k_new.transpose(1, 2)
+        cache.self_v[l, :, :, pos : pos + t] = v_new.transpose(1, 2)
+        # positions past pos+t are masked for every query: leave them out
+        o = _cached_attention(
+            q, cache.self_k[l, :, :, : pos + t], cache.self_v[l, :, :, : pos + t], t_valid
+        )
+        x = x + linear(bp["attn"]["out"], merge_heads(o))
+        # --- cross-attention against the precomputed encoder K/V
+        xa = layer_norm(bp["cross_attn_ln"], x)
+        qx = split_heads(linear(bp["cross_attn"]["q"], xa), n_head)
+        if quantized:
+            # K's dequant scale folds into q, V's after the probs matmul
+            qx = qx * cache.cross_k_scale[l].to(qx.dtype)
+            if kernel_layout:
+                ox = cross_attention_int4_stacked(
+                    qx.float().contiguous(), cache.cross_k, cache.cross_v, l,
+                    valid_len=cfg.n_audio_ctx,
+                ).to(x.dtype)
+            else:
+                ox = _cached_attention(
+                    qx, cache.cross_k[l].to(x.dtype).transpose(1, 2),
+                    cache.cross_v[l].to(x.dtype).transpose(1, 2),
+                )
+            ox = ox * cache.cross_v_scale[l].to(ox.dtype)
+        else:
+            ox = _cached_attention(
+                qx, cache.cross_k[l].transpose(1, 2), cache.cross_v[l].transpose(1, 2)
+            )
+        x = x + linear(bp["cross_attn"]["out"], merge_heads(ox))
+        # --- MLP
+        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+    if logit_positions is not None:
+        x = x[:, [q % t for q in logit_positions]]
+    x = layer_norm(p["ln"], x)
+    # unembed in float32 (products of bf16 values are exact in float32, so
+    # this is the JAX dot with preferred_element_type=float32): bf16 logits
+    # would round away the argmax margin
+    if unembed is None:
+        unembed = p["token_emb"].float()
+    return torch.matmul(x.float(), unembed.T), cache
+
+
+# ---------------------------------------------------------------------------
+# Logit rules (vectorised ApplyTimestampRules / SuppressBlank / SuppressTokens)
+# ---------------------------------------------------------------------------
+
+def apply_logit_rules(
+    logits: torch.Tensor,  # (B, V) float32
+    st: SpecialTokens,
+    *,
+    step: int,  # tokens sampled so far (0 at first sample)
+    last_token: torch.Tensor,  # (B,)
+    penultimate_token: torch.Tensor,  # (B,)
+    max_ts_token: torch.Tensor,  # (B,) highest timestamp sampled so far (or tb-1)
+    suppress_mask: torch.Tensor | None,  # (V,) bool — True = suppress
+    use_timestamps: bool,
+    max_initial_timestamp_index: int | None = 50,
+    space_blank_id: int | None = None,
+) -> torch.Tensor:
+    """All Whisper sampling constraints as one vectorised mask pass (the
+    JAX ``apply_logit_rules``, rule for rule)."""
+    v = logits.shape[-1]
+    vocab_ids = torch.arange(v, device=logits.device)
+    tb = st.timestamp_begin
+
+    # 1. static suppress list (non-speech symbols, sot/notimestamps/...)
+    if suppress_mask is not None:
+        logits = logits.masked_fill(suppress_mask[None, :], NEG_INF)
+
+    # 2. suppress blank at the first sample: " " and EOT
+    if space_blank_id is not None and step == 0:
+        blank = (vocab_ids == space_blank_id) | (vocab_ids == st.eot)
+        logits = logits.masked_fill(blank[None, :], NEG_INF)
+
+    if not use_timestamps:
+        return logits
+
+    is_ts = vocab_ids >= tb  # (V,)
+    last_was_ts = last_token >= tb
+    penult_was_ts = (penultimate_token >= tb) | (step < 2)
+
+    # 2b. <|notimestamps|> is never legal in timestamp mode
+    logits = logits.masked_fill((vocab_ids == st.no_timestamps)[None, :], NEG_INF)
+
+    # 3. ts-pairing: after <ts> <ts> force text; after text <ts> force ts/EOT
+    mask_ts = last_was_ts & penult_was_ts
+    mask_text = last_was_ts & ~penult_was_ts
+    text_ids = vocab_ids < st.eot
+    logits = logits.masked_fill(mask_ts[:, None] & is_ts[None, :], NEG_INF)
+    logits = logits.masked_fill(mask_text[:, None] & text_ids[None, :], NEG_INF)
+
+    # 4. timestamps are non-decreasing (a lone timestamp may repeat once)
+    lone_ts = last_was_ts & ~penult_was_ts
+    floor = torch.where(lone_ts, max_ts_token, max_ts_token + 1)
+    below = vocab_ids[None, :] < floor[:, None]
+    logits = logits.masked_fill(below & is_ts[None, :], NEG_INF)
+
+    # 5. first sample must be a timestamp, capped at max_initial_timestamp
+    if step == 0:
+        logits = logits.masked_fill(~is_ts[None, :], NEG_INF)
+        if max_initial_timestamp_index is not None:
+            too_late = vocab_ids > tb + max_initial_timestamp_index
+            logits = logits.masked_fill(too_late[None, :], NEG_INF)
+
+    # 6. if total timestamp probability beats the best text token, force ts
+    logprobs = torch.log_softmax(logits, dim=-1)
+    ts_lp = torch.logsumexp(logprobs.masked_fill(~is_ts[None, :], NEG_INF), dim=-1)
+    max_text_lp = logprobs.masked_fill(is_ts[None, :], NEG_INF).amax(dim=-1)
+    force_ts = ts_lp > max_text_lp
+    return logits.masked_fill(force_ts[:, None] & ~is_ts[None, :], NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# Greedy / sampling decode loop
+# ---------------------------------------------------------------------------
+
+class DecodeResult(NamedTuple):
+    tokens: torch.Tensor  # (B, max_new) int64, EOT-padded
+    lengths: torch.Tensor  # (B,) number of valid tokens (excluding EOT)
+    sum_logprob: torch.Tensor  # (B,)
+    no_speech_prob: torch.Tensor  # (B,) P(no_speech) at the SOT position
+
+
+def _sample_loop(
+    params: Params,
+    cfg: WhisperConfig,
+    st: SpecialTokens,
+    cache: Cache,
+    last_logits: torch.Tensor,  # (B, V) logits for the first sample
+    *,
+    start_pos: int,  # cache slot of the first sampled token
+    max_new_tokens: int,
+    use_timestamps: bool,
+    suppress_mask,
+    space_blank_id,
+    temperature: float,
+    rng_seed: int,
+    last_init: torch.Tensor,  # (B,)
+    penult_init: torch.Tensor,  # (B,)
+    compute_dtype=None,
+    max_initial_ts_index: int | None = 50,
+    kernel_layout: bool = False,
+    unembed: torch.Tensor | None = None,
+):
+    """Sample until every row has emitted EOT or max_new_tokens is reached.
+    Returns (tokens (B, max_new), lengths, sum_logprob)."""
+    b, dev = last_logits.shape[0], last_logits.device
+    tb = st.timestamp_begin
+    tokens = torch.full((b, max_new_tokens), st.eot, dtype=torch.long, device=dev)
+    last = last_init.long()
+    penult = penult_init.long()
+    max_ts = torch.full((b,), tb - 1, dtype=torch.long, device=dev)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    sum_lp = torch.zeros(b, dtype=torch.float32, device=dev)
+    gen = None
+    if temperature > 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(rng_seed))
+    logits = last_logits
+    for step in range(max_new_tokens):
+        masked = apply_logit_rules(
+            logits, st, step=step, last_token=last, penultimate_token=penult,
+            max_ts_token=max_ts, suppress_mask=suppress_mask,
+            use_timestamps=use_timestamps,
+            max_initial_timestamp_index=max_initial_ts_index,
+            space_blank_id=space_blank_id,
+        )
+        if temperature > 0:
+            probs = torch.softmax(masked / temperature, dim=-1)
+            next_tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        else:
+            next_tok = masked.argmax(dim=-1)
+        logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]
+        next_tok = torch.where(finished, st.eot, next_tok)
+        sum_lp = sum_lp + torch.where(finished, 0.0, logprob)
+        max_ts = torch.where(
+            (next_tok >= tb) & ~finished, torch.maximum(max_ts, next_tok), max_ts
+        )
+        finished = finished | (next_tok == st.eot)
+        tokens[:, step] = next_tok
+        penult, last = last, next_tok
+        if step + 1 == max_new_tokens or bool(finished.all()):
+            break
+        logits, _ = decoder_forward_cached(
+            params, cfg, next_tok[:, None], cache, start_pos + step,
+            compute_dtype=compute_dtype, kernel_layout=kernel_layout, unembed=unembed,
+        )
+        logits = logits[:, -1]
+    lengths = (tokens != st.eot).sum(dim=-1)
+    return tokens, lengths, sum_lp
+
+
+def _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b, g):
+    """Best of g sampling candidates per element by average logprob
+    (openai's MaximumLikelihoodRanker over a best_of group)."""
+    tokens = tokens.reshape(b, g, -1)
+    lengths = lengths.reshape(b, g)
+    sum_logprob = sum_logprob.reshape(b, g)
+    avg = sum_logprob / torch.clamp(lengths, min=1).float()
+    best = avg.argmax(dim=-1)  # (B,)
+    rows = torch.arange(b, device=tokens.device)
+    return DecodeResult(
+        tokens=tokens[rows, best],
+        lengths=lengths[rows, best],
+        sum_logprob=sum_logprob[rows, best],
+        no_speech_prob=no_speech_prob.reshape(b, g)[:, 0],
+    )
+
+
+def greedy_decode(
+    params: Params,
+    cfg: WhisperConfig,
+    audio_states: torch.Tensor,  # (B, Ta, d) encoder output
+    *,
+    sot_sequence: tuple[int, ...],
+    max_new_tokens: int = 224,
+    use_timestamps: bool = True,
+    suppress_mask: torch.Tensor | None = None,
+    space_blank_id: int | None = None,
+    dtype_name: str = "float32",
+    quantize_cross_kv: bool = False,
+    kv_bits: int = 8,
+    temperature: float = 0.0,
+    rng_seed: int = 0,
+    best_of: int = 1,
+    max_initial_ts_index: int | None = 50,
+) -> DecodeResult:
+    """Batched greedy/sampling decode with Whisper's rules.
+
+    temperature == 0 -> argmax; > 0 -> categorical sampling.  best_of > 1
+    at temperature > 0 samples that many candidates per element (rows ride
+    the batch axis) and returns the best by average logprob.
+    quantize_cross_kv with kv_bits=4 builds the int4 kernel-layout cache
+    (the CUDA kernel on the card); kv_bits=8 the int8 cache read through
+    plain attention.
+    """
+    st = SpecialTokens.for_config(cfg)
+    dtype = getattr(torch, dtype_name)
+    b0 = audio_states.shape[0]
+    group = best_of if (best_of > 1 and temperature > 0) else 1
+    if group > 1:
+        audio_states = audio_states.repeat_interleave(group, dim=0)
+    b, dev = audio_states.shape[0], audio_states.device
+    prompt_len = len(sot_sequence)
+    kernel_layout = quantize_cross_kv and kv_bits == 4
+    cache = init_cache(
+        params, cfg, audio_states, prompt_len + max_new_tokens, dtype=dtype,
+        quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
+        kv_bits=kv_bits,
+    )
+    unembed = params["decoder"]["token_emb"].float()
+
+    # prefill the SOT sequence; unembed only the sot slot and the last one
+    prompt = torch.tensor(sot_sequence, dtype=torch.long, device=dev)[None].repeat(b, 1)
+    logits, cache = decoder_forward_cached(
+        params, cfg, prompt, cache, 0, compute_dtype=dtype, kernel_layout=kernel_layout, logit_positions=(0, -1), unembed=unembed,
+    )
+    if st.no_speech < cfg.n_vocab:
+        no_speech_prob = torch.softmax(logits[:, 0], dim=-1)[:, st.no_speech]
+    else:
+        no_speech_prob = torch.zeros(b, device=dev)
+
+    tokens, lengths, sum_logprob = _sample_loop(
+        params, cfg, st, cache, logits[:, 1],
+        start_pos=prompt_len,
+        max_new_tokens=max_new_tokens,
+        use_timestamps=use_timestamps,
+        suppress_mask=suppress_mask,
+        space_blank_id=space_blank_id,
+        temperature=temperature,
+        rng_seed=rng_seed,
+        last_init=torch.full((b,), sot_sequence[-1], device=dev),
+        penult_init=torch.full((b,), sot_sequence[0], device=dev),
+        compute_dtype=dtype,
+        max_initial_ts_index=max_initial_ts_index,
+        kernel_layout=kernel_layout,
+        unembed=unembed,
+    )
+    if group > 1:
+        return _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b0, group)
+    return DecodeResult(tokens, lengths, sum_logprob, no_speech_prob)
+
+
+# ---------------------------------------------------------------------------
+# Language detection (openai-whisper's detect_language equivalent)
+# ---------------------------------------------------------------------------
+
+def detect_language(
+    params: Params, cfg: WhisperConfig, audio_states: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder step on <|sot|> over an UNQUANTIZED float32 cache;
+    returns (lang_index (B,), probs (B, n_lang)), the index relative to
+    SpecialTokens.lang_begin."""
+    st = SpecialTokens.for_config(cfg)
+    b = audio_states.shape[0]
+    cache = init_cache(params, cfg, audio_states, max_len=1)
+    sot = torch.full((b, 1), st.sot, dtype=torch.long, device=audio_states.device)
+    logits, _ = decoder_forward_cached(params, cfg, sot, cache, 0)
+    lang_logits = logits[:, 0, st.lang_begin : st.lang_begin + st.num_languages]
+    probs = torch.softmax(lang_logits, dim=-1)
+    return probs.argmax(dim=-1), probs
+
+
+# ---------------------------------------------------------------------------
+# Seek semantics (openai-whisper's transcribe-loop window advance; numpy)
+# ---------------------------------------------------------------------------
+
+def seek_consumed(
+    row: np.ndarray, st: SpecialTokens, chunk_length_s: float = 30.0
+) -> tuple[float, bool]:
+    """How much of a 30 s window this decode actually CONSUMED:
+    (chunk_length_s, False) for a clean ending, or (last closed end
+    timestamp, True) when unclosed text trails the last closed segment
+    (openai rewinds seek there and re-decodes the straddler)."""
+    toks = [int(t) for t in row if int(t) != st.eot]
+    if not toks:
+        return chunk_length_s, False
+    if toks[-1] >= st.timestamp_begin:
+        if len(toks) >= 2 and toks[-2] >= st.timestamp_begin:
+            # consecutive-timestamp ending: openai rewinds to the FIRST
+            # timestamp of the pair
+            consumed = (toks[-2] - st.timestamp_begin) * 0.02
+            if consumed <= 0.0 or consumed >= chunk_length_s:
+                return chunk_length_s, False
+            return consumed, True
+        return chunk_length_s, False  # single-timestamp ending: clean
+    last_closed_end = None
+    cur_start = None
+    trailing_text = False
+    for t in toks:
+        if t >= st.timestamp_begin:
+            if cur_start is None:
+                cur_start = t
+            else:
+                last_closed_end = t
+                cur_start = None
+            trailing_text = False
+        elif t < st.eot:
+            trailing_text = True
+    if last_closed_end is None or not trailing_text:
+        return chunk_length_s, False
+    consumed = (last_closed_end - st.timestamp_begin) * 0.02
+    if consumed <= 0.0:
+        return chunk_length_s, False  # degenerate: never rewind to 0
+    return consumed, True
+
+
+def truncate_row_after_seek(row: np.ndarray, st: SpecialTokens) -> np.ndarray:
+    """Copy of ``row`` with every token after the last CLOSED timestamp
+    pair replaced by EOT."""
+    out = np.asarray(row).copy()
+    last_close_idx = None
+    cur_start = None
+    for i, t in enumerate(int(x) for x in out):
+        if t == st.eot:
+            break
+        if t >= st.timestamp_begin:
+            if cur_start is None:
+                cur_start = i
+            else:
+                last_close_idx = i
+                cur_start = None
+    if last_close_idx is not None:
+        out[last_close_idx + 1:] = st.eot
+    return out
+
+
+def keep_closed_segments_before(
+    row: np.ndarray, st: SpecialTokens, cut_s: float
+) -> tuple[np.ndarray, float | None]:
+    """Keep only the CLOSED segments that start (window-local) before
+    ``cut_s``; returns (new_row, last kept end in seconds or None)."""
+    out = np.asarray(row).copy()
+    cur_start = None
+    last_keep_idx = None
+    last_end_s = None
+    for i, t in enumerate(int(x) for x in out):
+        if t == st.eot:
+            break
+        if t >= st.timestamp_begin:
+            if cur_start is None:
+                cur_start = (t - st.timestamp_begin) * 0.02
+            else:
+                if cur_start < cut_s:
+                    last_keep_idx = i
+                    last_end_s = (t - st.timestamp_begin) * 0.02
+                cur_start = None
+    if last_keep_idx is None:
+        return np.full_like(out, st.eot), None
+    out[last_keep_idx + 1:] = st.eot
+    return out, last_end_s
+
+
+def drop_segments_before(
+    row: np.ndarray, st: SpecialTokens, cut_s: float
+) -> np.ndarray:
+    """Drop a row's leading segments that START (window-local) before
+    ``cut_s``; keep everything from the first segment at/after the cut."""
+    out = np.asarray(row).copy()
+    toks = [int(t) for t in out]
+    cur_start_idx = None
+    keep_from = None
+    for i, t in enumerate(toks):
+        if t == st.eot:
+            break
+        if t >= st.timestamp_begin:
+            if cur_start_idx is None:
+                cur_start_idx = i
+                if (t - st.timestamp_begin) * 0.02 >= cut_s:
+                    keep_from = i
+                    break
+            else:
+                cur_start_idx = None
+    if keep_from is None:
+        return np.full_like(out, st.eot)
+    kept = out[keep_from:]
+    res = np.full_like(out, st.eot)
+    res[: len(kept)] = kept
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Token sequence -> timestamped segments (host-side, numpy)
+# ---------------------------------------------------------------------------
+
+def tokens_to_segments(
+    token_rows: np.ndarray,  # (B, T) decoded rows (EOT-padded)
+    st: SpecialTokens,
+    chunk_offsets_s: np.ndarray,  # (B,) start time of each 30 s chunk
+    decode_text,  # callable: list[int] -> str
+    chunk_length_s: float = 30.0,
+    chunk_durations_s: np.ndarray | None = None,  # (B,) actual audio seconds
+    row_meta: list[dict] | None = None,  # (B,) per-window decode metadata
+) -> list[dict]:
+    """Parse timestamp tokens into Whisper-schema segments ("seek",
+    "start", "end", "text", "tokens", plus the window's row_meta).  A
+    trailing unclosed segment ends at the chunk's actual audio duration."""
+    if chunk_durations_s is None:
+        chunk_durations_s = np.full(len(token_rows), chunk_length_s)
+    if row_meta is None:
+        row_meta = [{}] * len(token_rows)
+    segments: list[dict] = []
+    for row, offset, chunk_dur, meta in zip(
+        token_rows, chunk_offsets_s, chunk_durations_s, row_meta
+    ):
+        toks = [int(t) for t in row if int(t) != st.eot]
+        seek = int(round(float(offset) * 100.0))  # openai frame units
+        cur_start = None
+        cur_text: list[int] = []
+        cur_toks: list[int] = []
+        last_end = 0.0
+        for t in toks:
+            if t >= st.timestamp_begin:
+                ts = (t - st.timestamp_begin) * 0.02
+                if cur_start is None:
+                    cur_start = ts
+                    cur_toks = [t]
+                else:
+                    text = decode_text(cur_text).strip()
+                    if text:
+                        segments.append(
+                            {
+                                "seek": seek,
+                                "start": float(offset + cur_start),
+                                "end": float(offset + ts),
+                                "text": text,
+                                "tokens": cur_toks + [t],
+                                **meta,
+                            }
+                        )
+                    last_end = ts
+                    cur_start = None
+                    cur_text = []
+                    cur_toks = []
+            elif t < st.eot:
+                if cur_start is None:  # no-timestamp decode: one big segment
+                    cur_start = last_end
+                cur_text.append(t)
+                cur_toks.append(t)
+        if cur_text:
+            text = decode_text(cur_text).strip()
+            if text:
+                start = cur_start
+                # clamp keeps end > start even when the unclosed segment
+                # opens exactly at chunk_length_s
+                end = min(
+                    max(float(chunk_dur), start + 0.02),
+                    max(chunk_length_s, start + 0.02),
+                )
+                segments.append(
+                    {
+                        "seek": seek,
+                        "start": float(offset + start),
+                        "end": float(offset + end),
+                        "text": text,
+                        "tokens": list(cur_toks),
+                        **meta,
+                    }
+                )
+    return segments

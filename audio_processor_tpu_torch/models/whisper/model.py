@@ -1,0 +1,220 @@
+"""Whisper encoder and its building blocks, in PyTorch.
+
+The port of the JAX package's ``models/whisper/model.py``.  Parameters are
+a nested dict of tensors with the JAX package's keys and layouts (so
+``convert.params_from_jax`` carries a JAX tree across unchanged), except
+the conv stem, which is stored in ``conv1d``'s (C_out, C_in, width)
+layout.  Layer parameters are stacked along a leading layer axis, as in
+the JAX tree; ``layer(blocks, l)`` takes views of one layer.
+
+Numerics mirror the JAX functions: layer norm with float32 statistics and
+population variance, linear layers as ``x @ W + b`` with ``W`` stored
+(d_in, d_out), exact GELU, attention scores softmaxed in float32, and the
+conv stem's bias added in the compute dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .config import WhisperConfig
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialisation (random weights; checkpoints via convert.py)
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: WhisperConfig, generator: torch.Generator) -> Params:
+    """Random float32 weights with the JAX package's initialiser scales
+    (normal / sqrt(d_in) linears, zero biases, unit layer norms, 0.02
+    token embedding, zero decoder positions, sinusoidal encoder positions),
+    on the generator's device.
+
+    The numbers differ from ``jax.random``'s; tests carry JAX weights
+    across with ``convert.params_from_jax`` instead.
+    """
+    device = generator.device
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=generator, device=device) * scale
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device)
+
+    def linear(n, d_in, d_out, bias=True):
+        p = {"w": normal(n, d_in, d_out, scale=1.0 / math.sqrt(d_in))}
+        if bias:
+            p["b"] = zeros(n, d_out)
+        return p
+
+    def ln(n, d):
+        return {"scale": ones(n, d), "bias": zeros(n, d)}
+
+    def attn(n, d):
+        return {
+            "q": linear(n, d, d),
+            "k": linear(n, d, d, bias=False),  # Whisper: no bias on K
+            "v": linear(n, d, d),
+            "out": linear(n, d, d),
+        }
+
+    def blocks(n, d, cross):
+        p = {
+            "attn_ln": ln(n, d),
+            "attn": attn(n, d),
+            "mlp_ln": ln(n, d),
+            "fc1": linear(n, d, 4 * d),
+            "fc2": linear(n, 4 * d, d),
+        }
+        if cross:
+            p["cross_attn_ln"] = ln(n, d)
+            p["cross_attn"] = attn(n, d)
+        return p
+
+    d = cfg.n_audio_state
+    return {
+        "encoder": {
+            # conv weights in conv1d layout: (C_out, C_in, width)
+            "conv1": {
+                "w": normal(d, cfg.n_mels, 3, scale=1.0 / math.sqrt(3 * cfg.n_mels)),
+                "b": zeros(d),
+            },
+            "conv2": {
+                "w": normal(d, d, 3, scale=1.0 / math.sqrt(3 * d)),
+                "b": zeros(d),
+            },
+            "blocks": blocks(cfg.n_audio_layer, d, cross=False),
+            "ln_post": {"scale": ones(d), "bias": zeros(d)},
+            "pos_emb": torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)).to(device),
+        },
+        "decoder": {
+            "token_emb": normal(cfg.n_vocab, cfg.n_text_state, scale=0.02),
+            "pos_emb": zeros(cfg.n_text_ctx, cfg.n_text_state),
+            "blocks": blocks(cfg.n_text_layer, cfg.n_text_state, cross=True),
+            "ln": {"scale": ones(cfg.n_text_state), "bias": zeros(cfg.n_text_state)},
+        },
+    }
+
+
+def map_params(fn, tree):
+    """Apply ``fn`` to every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer(blocks: Params, l: int) -> Params:
+    """Views of layer ``l`` of a stacked block tree (no copy)."""
+    return map_params(lambda t: t[l], blocks)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def layer_norm(p, x, eps=1e-5):
+    """Layer norm over the last axis.  F.layer_norm keeps its statistics
+    (mean, population variance) in float32 for bf16 inputs and rounds the
+    output once, as the JAX ``layer_norm`` does; one launch instead of
+    eight elementwise passes."""
+    d = x.shape[-1]
+    return F.layer_norm(x, (d,), p["scale"].to(x.dtype), p["bias"].to(x.dtype), eps)
+
+
+def linear(p, x):
+    """``x @ W + b`` in x's dtype, W stored (d_in, d_out).  The product
+    accumulates in float32 inside the GEMM and the bias joins in its
+    epilogue before the one rounding to x's dtype (addmm), as the JAX
+    ``linear`` does with preferred_element_type=float32."""
+    w = p["w"].to(x.dtype)
+    if "b" not in p:
+        return torch.matmul(x, w)
+    y = torch.addmm(p["b"].to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def gelu(x):
+    return F.gelu(x, approximate="none")
+
+
+def sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper's fixed sinusoidal positions for the encoder (sin||cos)."""
+    assert channels % 2 == 0
+    log_timescale = math.log(10000.0) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def split_heads(x, n_head):
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head)
+
+
+def merge_heads(x):
+    b, t, h, dh = x.shape
+    return x.reshape(b, t, h * dh)
+
+
+def attention(q, k, v):
+    """softmax(q k^T / sqrt(dh)) v with (B,T,H,Dh) layouts, float32 softmax.
+
+    Plain matmuls, mirroring the JAX ``model.attention``; the encoder's
+    fused-attention kernel is later work.
+    """
+    dh = q.shape[-1]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, T, Dh)
+    scores = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(dh))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2).to(q.dtype)
+
+
+def self_attention(p, x, n_head):
+    q = split_heads(linear(p["q"], x), n_head)
+    k = split_heads(linear(p["k"], x), n_head)
+    v = split_heads(linear(p["v"], x), n_head)
+    return linear(p["out"], merge_heads(attention(q, k, v)))
+
+
+def mlp(p, x):
+    return linear(p["fc2"], gelu(linear(p["fc1"], x)))
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def _conv1d(p, x, stride):
+    # x: (B, C_in, T); w: (C_out, C_in, width).  The bias is added in the
+    # compute dtype: an f32 bias would promote bf16 activations to f32.
+    y = F.conv1d(x, p["w"].to(x.dtype), stride=stride, padding=1)
+    return y + p["b"].to(x.dtype)[:, None]
+
+
+def encode(
+    params: Params,
+    cfg: WhisperConfig,
+    mel: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """mel (B, n_mels, 3000) -> encoder states (B, 1500, d)."""
+    p = params["encoder"]
+    x = mel.to(compute_dtype)  # (B, n_mels, T): conv1d's channel-first layout
+    x = gelu(_conv1d(p["conv1"], x, stride=1))
+    x = gelu(_conv1d(p["conv2"], x, stride=2))  # (B, d, 1500)
+    x = x.transpose(1, 2) + p["pos_emb"].to(x.dtype)
+    for l in range(cfg.n_audio_layer):
+        bp = layer(p["blocks"], l)
+        x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_audio_head)
+        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+    return layer_norm(p["ln_post"], x)

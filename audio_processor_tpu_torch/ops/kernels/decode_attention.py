@@ -1,0 +1,150 @@
+"""Kernel B: int4 stacked decode cross-attention (CUDA C++,
+``csrc/cross_attn_int4.cu``), with the int4 cache format helpers.
+
+Replaces the TPU kernel ``cross_attention_int4_stacked``
+(``audio_processor_tpu/ops/pallas/decode_attention.py:411``).  The cache
+keeps the JAX package's byte layout so tests compare it exactly:
+offset-binary nibbles u = x + 8, time de-interleaved (low nibbles = even
+times, high nibbles = odd times), K as (L, B, H, Dh, Tpad/2) and V as
+(L, B, H, Tpad/2, Dh), Tpad a multiple of 128.
+
+``cross_attention_int4_stacked`` launches the kernel on CUDA tensors and
+runs the plain PyTorch version (``cross_attention_int4_reference``) on CPU
+tensors.  Bound and design: see the source.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import build
+
+
+# ---------------------------------------------------------------------------
+# Cache format (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def pack_int4_time(k8: torch.Tensor, v8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nibble-pack K along its last (time) axis and V along its second-last
+    (time) axis: int4-valued int8 in [-7, 7] -> int8 bytes holding
+    (x_even + 8) | (x_odd + 8) << 4."""
+    def pack(lo, hi):
+        u = (lo.to(torch.int32) + 8) | ((hi.to(torch.int32) + 8) << 4)
+        return u.to(torch.uint8).view(torch.int8)
+
+    return pack(k8[..., 0::2], k8[..., 1::2]), pack(v8[..., 0::2, :], v8[..., 1::2, :])
+
+
+def _unpack_nibbles_u(p8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 -> (low nibble, high nibble), both unsigned-offset int32 in
+    [1, 15] (subtract 8 for the signed value)."""
+    x = p8.to(torch.int32)
+    return x & 0xF, (x >> 4) & 0xF
+
+
+def _deinterleaved_valid_mask(tq: int, tpad: int, valid_len: int, device) -> torch.Tensor:
+    """(Tq, Tpad) bool mask for the [evens, odds] time order."""
+    half = tpad // 2
+    j = torch.arange(tpad, device=device)
+    orig = torch.where(j < half, 2 * j, 2 * (j - half) + 1)
+    return (orig < valid_len)[None, :].expand(tq, tpad)
+
+
+def cross_attention_int4_reference(
+    q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, *, valid_len: int
+) -> torch.Tensor:
+    """Plain version on one layer's packed arrays: q (B, Tq, H, Dh) (K scale
+    folded in), k4 (B, H, Dh, Tpad/2), v4 (B, H, Tpad/2, Dh) -> (B, Tq, H, Dh)
+    float32 in integer units (the caller applies the V scale)."""
+    dh = q.shape[-1]
+    tq = q.shape[1]
+    lo_k, hi_k = _unpack_nibbles_u(k4)
+    k_full = (torch.cat([lo_k, hi_k], dim=3) - 8).float()  # (B, H, Dh, Tpad)
+    lo_v, hi_v = _unpack_nibbles_u(v4)
+    v_full = (torch.cat([lo_v, hi_v], dim=2) - 8).float()  # (B, H, Tpad, Dh)
+    scores = torch.einsum("bqhd,bhdt->bhqt", q.float(), k_full) / math.sqrt(dh)
+    valid = _deinterleaved_valid_mask(tq, k_full.shape[3], valid_len, q.device)
+    scores = torch.where(valid[None, None], scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqt,bhtd->bqhd", probs, v_full)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("cross_attn_int4")
+    fn = lib.cross_attn_int4_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def cross_attention_int4_stacked(
+    q: torch.Tensor,
+    k4_all: torch.Tensor,
+    v4_all: torch.Tensor,
+    layer: int,
+    *,
+    valid_len: int,
+) -> torch.Tensor:
+    """Decode cross-attention of q (B, Tq, H, Dh) float32 (K scale folded
+    in) against layer ``layer`` of the stacked packed cache, k4_all
+    (L, B, H, Dh, Tpad/2) and v4_all (L, B, H, Tpad/2, Dh) int8.
+    Returns (B, Tq, H, Dh) float32 in integer units.
+
+    CUDA tensors: the kernel, reading the layer in place through a
+    pointer offset (no per-layer copy), or an error.  CPU tensors: the
+    plain version.
+    """
+    if q.device.type == "cpu":
+        return cross_attention_int4_reference(
+            q, k4_all[layer], v4_all[layer], valid_len=valid_len
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"cross_attention_int4_stacked: unsupported device {q.device}")
+    b, tq, h, dh = q.shape
+    n_layers, half = k4_all.shape[0], k4_all.shape[4]
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError("q must be contiguous float32")
+    for name, t, shape in (
+        ("k4_all", k4_all, (n_layers, b, h, dh, half)),
+        ("v4_all", v4_all, (n_layers, b, h, half, dh)),
+    ):
+        if t.device != q.device or t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int8 tensor on {q.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} out of range for {n_layers} layers")
+    if dh % 4 or half % 4:
+        raise ValueError(f"kernel needs Dh and Tpad/2 divisible by 4 (Dh={dh}, Tpad/2={half})")
+    if not 1 <= valid_len <= 2 * half:
+        raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
+    lib = _library()
+    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    layer_bytes = b * h * dh * half
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.cross_attn_int4_launch(
+        q.data_ptr(),
+        k4_all.data_ptr() + layer * layer_bytes,
+        v4_all.data_ptr() + layer * layer_bytes,
+        out.data_ptr(), b, tq, h, dh, half, valid_len,
+        1.0 / math.sqrt(dh), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"cross_attn_int4 kernel launch failed: CUDA error {rc}")
+    cross_attention_int4_stacked.launches += 1
+    return out
+
+
+cross_attention_int4_stacked.launches = 0

@@ -1,0 +1,719 @@
+"""End-to-end transcription: audio -> timestamped segments, in PyTorch.
+
+The port of the JAX package's ``pipeline/transcribe.py`` on its default
+path: the recording is cut into 30 s windows that run through the fused
+log-mel kernel, the encoder and the int4 cross-KV greedy decode in slabs
+of windows, followed by openai-whisper's quality-retry ladder, no-speech
+gate, seek repair and segment assembly.  Option defaults are the JAX
+package's.  Options that belong to later slices of the port raise
+NotImplementedError at construction.
+
+Slabs run one after another: PyTorch queues the card's work
+asynchronously, and the decode loop reads back one flag per token.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import os
+import threading
+import time
+import zlib
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from . import ingest
+from ..models.whisper import decode as decode_lib
+from ..models.whisper import model as model_lib
+from ..models.whisper.config import WhisperConfig, get_config
+from ..models.whisper.tokenizer import (
+    WHISPER_LANGUAGES,
+    WHISPER_LANGUAGES_V3,
+    ByteTokenizer,
+)
+from ..ops import frontend
+from ..ops.kernels.log_mel import log_mel
+from ..runtime.device import resolve_device
+from ..utils import timestamps as timestamps_lib
+from ..utils.timestamps import TimeMap
+
+logger = logging.getLogger(__name__)
+
+CHUNK_SAMPLES = frontend.N_SAMPLES  # 480_000 = 30 s @ 16 kHz
+
+# openai's default retry rungs ((0, .2, .4, .6, .8, 1) minus the 0 base)
+DEFAULT_TEMPERATURE_LADDER = (0.2, 0.4, 0.6, 0.8, 1.0)
+
+# options of the JAX Transcriber that later slices of the port bring:
+# name -> the value that means "off"
+_LATER_SLICE_OPTIONS = {
+    "beam_size": 0,
+    "condition_on_previous_text": False,
+    "word_timestamps": False,
+    "hallucination_silence_threshold": None,
+    "initial_prompt": None,
+    "prefix": None,
+    "carry_initial_prompt": False,
+    "mesh": None,
+    "quantize_self_kv": False,
+    "use_pallas_encoder_attn": False,
+}
+
+
+def _f32_to_i16(x: np.ndarray) -> np.ndarray:
+    """Float32 [-1, 1] audio -> int16, the wire dtype shipped to the card.
+    One definition for the grid windows and the seek-repair patches."""
+    return np.clip(x * 32768.0, -32768, 32767).astype(np.int16)
+
+
+def _bucket(n: int, max_bucket: int = 64) -> int:
+    """Round a chunk count up to the next power of two; above max_bucket,
+    to a multiple of max_bucket."""
+    if n >= max_bucket:
+        return -(-n // max_bucket) * max_bucket
+    return 1 << max(0, n - 1).bit_length()
+
+
+@dataclass
+class Transcriber:
+    """Holds params for one Whisper variant on one device.
+
+    ``device=None`` runs on the card and raises without one; pass
+    ``device="cpu"`` for the plain PyTorch path.
+    """
+
+    params: Any
+    cfg: WhisperConfig
+    tokenizer: Any = field(default_factory=ByteTokenizer)
+    language: int | None = None  # language token index, None = detect
+    compute_dtype: str = "bfloat16"
+    # parameter storage dtype: "auto" stores params in compute_dtype when
+    # that isn't float32; None keeps them as given
+    weights_dtype: str | None = "auto"
+    max_new_tokens: int = 224
+    device: Any = None
+    quantize_cross_kv: bool = True
+    # nibble-packed int4 cross-KV read by the CUDA decode kernel
+    cross_kv_bits: int = 4
+    # sampling candidates per window on T>0 decodes (openai's best_of)
+    best_of: int = 5
+    # base decode temperature; > 0 samples from the start, no retries
+    temperature: float = 0.0
+    temperature_ladder: tuple[float, ...] | None = None
+    logprob_threshold: float | None = -1.0
+    compression_ratio_threshold: float | None = 2.4
+    enable_fallback: bool = True
+    no_speech_threshold: float | None = 0.6
+    # openai's suppress_tokens: None or [-1] = the default non-speech set
+    suppress_tokens: list[int] | None = None
+    # windows per slab: None = 128, or 48 for >= 1024-d models
+    max_chunk_batch: int | None = None
+    task: str = "transcribe"
+    auto_language: bool = True
+    seek_repair: bool = True
+    without_timestamps: bool = False
+    max_initial_timestamp: float | None = 1.0
+    # later-slice options (must stay at their "off" value here)
+    beam_size: int = 0
+    condition_on_previous_text: bool = False
+    word_timestamps: bool = False
+    hallucination_silence_threshold: float | None = None
+    initial_prompt: str | None = None
+    prefix: str | None = None
+    carry_initial_prompt: bool = False
+    mesh: Any = None
+    quantize_self_kv: bool = False
+    use_pallas_encoder_attn: bool = False
+
+    def __post_init__(self):
+        for name, off in _LATER_SLICE_OPTIONS.items():
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"Transcriber option {name}={getattr(self, name)!r} is not "
+                    "ported to the PyTorch package yet"
+                )
+        if self.cross_kv_bits != 4:
+            raise NotImplementedError(
+                "cross_kv_bits=8 (the int8 decode kernel) is not ported yet"
+            )
+        if self.task not in ("transcribe", "translate"):
+            raise ValueError(f"task must be transcribe|translate, got {self.task!r}")
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {self.temperature}")
+        self.device = resolve_device(self.device)
+        self._max_initial_ts_index = (
+            None if self.max_initial_timestamp is None
+            else int(round(self.max_initial_timestamp / 0.02))
+        )
+        # openai's temperature option: a single float means one decode; the
+        # default ladder applies only to a zero base temperature
+        if self.temperature_ladder is None:
+            self._ladder = () if self.temperature > 0 else DEFAULT_TEMPERATURE_LADDER
+        else:
+            self._ladder = tuple(t for t in self.temperature_ladder if t > self.temperature)
+        self.special = decode_lib.SpecialTokens.for_config(self.cfg)
+        if self.language is not None and self.language >= self.special.num_languages:
+            raise ValueError(
+                f"language index {self.language} is out of range for this "
+                f"model's {self.special.num_languages}-language vocabulary"
+            )
+        if self.max_chunk_batch is None:
+            self.max_chunk_batch = 48 if self.cfg.n_audio_state >= 1024 else 128
+        wd = self.weights_dtype
+        if wd == "auto":
+            wd = None if self.compute_dtype == "float32" else self.compute_dtype
+        target = getattr(torch, wd) if wd is not None else None
+        dev = self.device
+        self.params = model_lib.map_params(
+            lambda t: t.to(dev, target)
+            if target is not None and t.dtype == torch.float32 else t.to(dev),
+            self.params,
+        )
+        # per-call detected language, thread-local: a server may share one
+        # Transcriber across job threads
+        self._lang_tls = threading.local()
+        # openai's default SuppressTokens, refined by suppress_tokens with
+        # DecodingOptions semantics (-1 mixes the default set back in)
+        if self.suppress_tokens is None or list(self.suppress_tokens) == [-1]:
+            mask = decode_lib.build_suppress_mask(self.tokenizer, self.special)
+        else:
+            ids = [int(t) for t in self.suppress_tokens]
+            if -1 in ids:
+                mask = decode_lib.build_suppress_mask(self.tokenizer, self.special)
+                ids = [t for t in ids if t >= 0]
+            else:
+                mask = np.zeros(self.special.n_vocab, bool)
+                for t in decode_lib.always_suppressed_specials(self.special):
+                    if 0 <= t < self.special.n_vocab:
+                        mask[t] = True
+            for t in ids:
+                if 0 <= t < self.special.n_vocab:
+                    mask[t] = True
+        self._suppress_mask = torch.from_numpy(mask).to(dev)
+        self._space_blank_id = decode_lib.space_blank_token_id(
+            self.tokenizer, self.special
+        )
+
+    # -- factories -------------------------------------------------------------
+
+    @classmethod
+    def random_init(
+        cls, name: str = "tiny", seed: int = 0, device=None, **kw
+    ) -> "Transcriber":
+        """Random-weight instance (tests and benches).  The fallback ladder
+        is off by default: random-weight output always fails the gate."""
+        kw.setdefault("enable_fallback", False)
+        dev = resolve_device(device)
+        cfg = get_config(name)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model_lib.init_params(cfg, gen)
+        return cls(params=params, cfg=cfg, device=dev, **kw)
+
+    @classmethod
+    def from_npz(
+        cls, path: str, tokenizer=None, tokenizer_path: str | None = None,
+        device=None, **kw,
+    ) -> "Transcriber":
+        """Load a checkpoint converted by the JAX package's convert tool.
+        Tokenizer: explicit object > tokenizer_path / APTPU_TOKENIZER_PATH >
+        the vocab embedded in the .npz > ByteTokenizer with a warning."""
+        from ..models.whisper import convert
+        from ..models.whisper.tokenizer import load_tokenizer_file
+
+        dev = resolve_device(device)
+        params, cfg = convert.load_params(path, dev)
+        if tokenizer is None:
+            tok_path = tokenizer_path or os.environ.get("APTPU_TOKENIZER_PATH")
+            if tok_path:
+                tokenizer = load_tokenizer_file(tok_path)
+            else:
+                tokenizer = convert.load_tokenizer(path)
+                if tokenizer is None:
+                    logger.warning(
+                        "%s has no embedded tokenizer and none was given — "
+                        "falling back to the byte tokenizer (real weights will "
+                        "decode to garbage text)", path,
+                    )
+                    tokenizer = ByteTokenizer()
+        return cls(params=params, cfg=cfg, tokenizer=tokenizer, device=dev, **kw)
+
+    # -- helpers ---------------------------------------------------------------
+
+    @property
+    def _slab_cap(self) -> int:
+        """Slab cap: a base temperature > 0 expands every decode best_of-fold."""
+        if self.temperature > 0 and self.best_of > 1:
+            return max(1, self.max_chunk_batch // self.best_of)
+        return self.max_chunk_batch
+
+    @property
+    def _retry_cap(self) -> int:
+        """Sub-batch cap for retries: T>0 rungs expand rows best_of-fold."""
+        return max(1, self.max_chunk_batch // max(1, self.best_of))
+
+    def _sot_seq(self, lang: int | None) -> tuple[int, ...]:
+        return tuple(
+            self.special.sot_sequence(
+                language=lang, task=self.task,
+                timestamps=not self.without_timestamps,
+            )
+        )
+
+    @property
+    def _active_language(self) -> int | None:
+        return getattr(self._lang_tls, "value", None)
+
+    @_active_language.setter
+    def _active_language(self, v: int | None) -> None:
+        self._lang_tls.value = v
+
+    def _frontend_encode(self, chunks_i16: torch.Tensor) -> torch.Tensor:
+        """int16 (B, 480000) on the device -> encoder states (B, 1500, d).
+        The log-mel is the fused CUDA kernel on the card."""
+        audio = chunks_i16.float() / 32768.0
+        mel = log_mel(audio, n_mels=self.cfg.n_mels)
+        return model_lib.encode(
+            self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype)
+        )
+
+    def _chunk_slab(self, audio: np.ndarray, chunk_ids: list[int], bucket: int) -> torch.Tensor:
+        """int16 (bucket, CHUNK_SAMPLES) slab of the given chunks, on the device."""
+        arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
+        for j, ci in enumerate(chunk_ids):
+            piece = audio[ci * CHUNK_SAMPLES : (ci + 1) * CHUNK_SAMPLES]
+            arr[j, : len(piece)] = _f32_to_i16(piece)
+        return torch.from_numpy(arr).to(self.device)
+
+    def warmup(self, n_chunks: int | None = None) -> float:
+        """Transcribe n_chunks windows of a low tone (default: one slab) so
+        the kernels are built and loaded before the first request.
+        Returns the wall seconds spent."""
+        if n_chunks is None:
+            n_chunks = self._slab_cap
+        t0 = time.monotonic()
+        t = np.arange(n_chunks * CHUNK_SAMPLES, dtype=np.float32) / 16_000
+        audio = (0.1 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+        self.transcribe(audio, remove_silence=False)
+        took = time.monotonic() - t0
+        logger.info("warmup: %d-chunk slab decoded in %.1f s", n_chunks, took)
+        return took
+
+    # -- decode and quality gates -----------------------------------------------
+
+    def _run_decode(self, audio_states, temperature: float | None = None, seed: int = 0):
+        if temperature is None:
+            temperature = self.temperature
+        lang = self._active_language if self._active_language is not None else self.language
+        return decode_lib.greedy_decode(
+            self.params,
+            self.cfg,
+            audio_states,
+            sot_sequence=self._sot_seq(lang),
+            max_new_tokens=self.max_new_tokens,
+            use_timestamps=not self.without_timestamps,
+            max_initial_ts_index=self._max_initial_ts_index,
+            suppress_mask=self._suppress_mask,
+            space_blank_id=self._space_blank_id,
+            dtype_name=self.compute_dtype,
+            quantize_cross_kv=self.quantize_cross_kv,
+            kv_bits=self.cross_kv_bits,
+            temperature=temperature,
+            rng_seed=seed,
+            best_of=self.best_of,
+        )
+
+    def _failed_rows(self, result, tokens: np.ndarray, n_real: int) -> np.ndarray:
+        """Quality gate per chunk: low avg logprob or repetitive output."""
+        # openai divides by len(tokens)+1 with no floor
+        lengths = result.lengths.cpu().numpy()[:n_real]
+        avg_lp = result.sum_logprob.cpu().numpy()[:n_real] / (lengths + 1)
+        if self.logprob_threshold is None:
+            failed = np.zeros(n_real, bool)
+        else:
+            failed = avg_lp < self.logprob_threshold
+        if self.compression_ratio_threshold is not None:
+            for i in range(n_real):
+                failed[i] |= (
+                    self._row_compression_ratio(tokens[i])
+                    > self.compression_ratio_threshold
+                )
+        if self.no_speech_threshold is not None:
+            # a window flagged as no-speech never retries (openai's
+            # decode_with_fallback exemption)
+            nsp = result.no_speech_prob.cpu().numpy()[:n_real]
+            failed &= ~(nsp > self.no_speech_threshold)
+        return failed
+
+    def _silent_rows(self, nsp: np.ndarray, avg_lp: np.ndarray) -> np.ndarray:
+        """openai's skip rule: silence iff no_speech_prob is high, unless the
+        decode is confident (avg_logprob above logprob_threshold)."""
+        silent = nsp > self.no_speech_threshold
+        if self.logprob_threshold is not None:
+            silent &= ~(avg_lp > self.logprob_threshold)
+        return silent
+
+    def _row_compression_ratio(self, tokens_row) -> float:
+        """openai's zlib compression_ratio over one window's decoded text."""
+        text_toks = [int(t) for t in tokens_row if int(t) < self.special.eot]
+        if not text_toks:
+            return 0.0
+        raw = self.tokenizer.decode(text_toks).encode("utf-8")
+        return round(len(raw) / max(len(zlib.compress(raw)), 1), 4) if raw else 0.0
+
+    def _collect_slab(self, result, audio_states, n_real: int) -> tuple[np.ndarray, dict]:
+        """One slab's decode to host, through the retry ladder and the
+        no-speech gate.  Returns (tokens, per-window meta)."""
+        tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
+        lengths0 = result.lengths.cpu().numpy()[:n_real]
+        meta = {
+            "avg_logprob": result.sum_logprob.cpu().numpy()[:n_real].astype(np.float64)
+            / (lengths0 + 1),
+            "no_speech_prob": result.no_speech_prob.cpu().numpy()[:n_real]
+            .astype(np.float64),
+            "temperature": np.full(n_real, self.temperature, np.float64),
+        }
+        if self.enable_fallback:
+            self._quality_retry(result, tokens, n_real, audio_states, meta)
+        # no-speech gate on the ACCEPTING decode's stats
+        if self.no_speech_threshold is not None:
+            silent = self._silent_rows(meta["no_speech_prob"], meta["avg_logprob"])
+            tokens[silent] = self.special.eot
+        meta["compression_ratio"] = np.asarray(
+            [self._row_compression_ratio(r) for r in tokens], np.float64
+        )
+        return tokens, meta
+
+    def _quality_retry(self, result, tokens, n_real, states, meta) -> None:
+        """Compacted temperature-ladder retries (openai's
+        decode_with_fallback): only the failed rows re-decode, padded to a
+        power-of-two bucket; ``tokens`` and ``meta`` update in place."""
+        failed = self._failed_rows(result, tokens, n_real)
+        for temp in self._ladder:
+            if not failed.any():
+                break
+            idx = np.flatnonzero(failed)
+            retry_cap = self._retry_cap
+            logger.info(
+                "quality fallback: %d/%d chunks re-decoding at T=%.1f",
+                len(idx), n_real, temp,
+            )
+            failed[:] = False
+            for lo in range(0, len(idx), retry_cap):
+                part = idx[lo : lo + retry_cap]
+                bucket = min(_bucket(len(part)), retry_cap)
+                pad_idx = np.zeros(bucket, np.int64)
+                pad_idx[: len(part)] = part
+                sub_states = states[torch.from_numpy(pad_idx).to(states.device)]
+                retry = self._run_decode(sub_states, temp, seed=int(temp * 10))
+                retry_tokens = retry.tokens.cpu().numpy()[: len(part)].astype(np.int32)
+                tokens[part] = retry_tokens
+                r_len = retry.lengths.cpu().numpy()[: len(part)]
+                meta["avg_logprob"][part] = (
+                    retry.sum_logprob.cpu().numpy()[: len(part)] / (r_len + 1)
+                )
+                meta["no_speech_prob"][part] = retry.no_speech_prob.cpu().numpy()[: len(part)]
+                meta["temperature"][part] = temp
+                refailed = self._failed_rows(retry, retry_tokens, len(part))
+                failed[part[refailed]] = True
+
+    # -- seek-based window advance (boundary-straddle repair) ------------------
+
+    def _apply_seek_repair(self, tokens: np.ndarray, n_chunks: int, audio):
+        """Re-cut and re-decode boundary-straddling windows in one extra
+        slab: each window whose decode trails unclosed text after its last
+        closed timestamp pair gets a patch window starting there, whose
+        segments replace window i's discarded tail and window i+1's
+        overlapped head.  Mutates ``tokens``; returns (tokens, patches)."""
+        if not self.seek_repair or self.without_timestamps or n_chunks < 1:
+            return tokens, None
+        content_s = len(audio) / 16_000.0
+        bounds: list[tuple[int, float]] = []
+        for i in range(n_chunks):
+            consumed, rewound = decode_lib.seek_consumed(tokens[i], self.special)
+            if not (rewound and 1.0 <= consumed <= 29.0):
+                continue
+            if i == n_chunks - 1 and i * 30.0 + consumed >= content_s - 0.2:
+                continue  # final window: nothing left past the rewind point
+            bounds.append((i, consumed))
+        if not bounds:
+            return tokens, None
+        logger.info(
+            "seek repair: %d/%d windows straddle a 30 s boundary", len(bounds), n_chunks,
+        )
+        patch_rows: list[np.ndarray] = []
+        patch_metas: list[dict] = []
+        cap = self._slab_cap
+        for lo in range(0, len(bounds), cap):
+            batch = bounds[lo : lo + cap]
+            bucket = min(_bucket(len(batch)), cap)
+            arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
+            for j, (i, c) in enumerate(batch):
+                s0 = i * CHUNK_SAMPLES + int(round(c * 16_000))
+                piece = audio[s0 : s0 + CHUNK_SAMPLES]
+                arr[j, : len(piece)] = _f32_to_i16(piece)
+            states = self._frontend_encode(torch.from_numpy(arr).to(self.device))
+            ptoks, pmeta = self._collect_slab(self._run_decode(states), states, len(batch))
+            patch_rows.append(ptoks)
+            patch_metas.append(pmeta)
+        patch_tokens = np.concatenate(patch_rows, axis=0)
+        patch_meta = {k: np.concatenate([m[k] for m in patch_metas]) for k in patch_metas[0]}
+
+        kept_rows, kept_offsets, kept_durations, kept_idx = [], [], [], []
+        for j, (i, c) in enumerate(bounds):
+            offset = i * 30.0 + c
+            # window i+1's start, patch-local; the final window has none
+            boundary_local = 30.0 - c if i + 1 < n_chunks else 30.0
+            row = patch_tokens[j]
+            trimmed, last_end_local = decode_lib.keep_closed_segments_before(
+                row, self.special, boundary_local
+            )
+            if last_end_local is None:
+                if any(int(t) < self.special.eot for t in row):
+                    # one long straddler: take the patch as-is
+                    trimmed = np.asarray(row).copy()
+                    last_end_local = min(30.0, max(content_s - offset, 0.02))
+                else:
+                    # patch gated to silence: drop window i's trailing text
+                    tokens[i] = decode_lib.truncate_row_after_seek(tokens[i], self.special)
+                    continue
+            tokens[i] = decode_lib.truncate_row_after_seek(tokens[i], self.special)
+            taken_end_global = offset + last_end_local
+            next_start = (i + 1) * 30.0
+            if i + 1 < n_chunks and taken_end_global > next_start + 0.1:
+                tokens[i + 1] = decode_lib.drop_segments_before(
+                    tokens[i + 1], self.special, taken_end_global - next_start
+                )
+            kept_rows.append(trimmed)
+            kept_offsets.append(offset)
+            kept_durations.append(min(30.0, max(content_s - offset, 0.02)))
+            kept_idx.append(j)
+        if not kept_rows:
+            return tokens, None
+        kept = np.asarray(kept_idx)
+        return tokens, {
+            "tokens": np.stack(kept_rows),
+            "offsets": np.asarray(kept_offsets, np.float64),
+            "durations": np.asarray(kept_durations, np.float64),
+            "meta": {k: v[kept] for k, v in patch_meta.items()},
+        }
+
+    # -- language detection ------------------------------------------------------
+
+    @staticmethod
+    def _voting_k(n_chunks: int) -> int:
+        """Leading chunks that vote on the language: the largest power of
+        two <= min(n_chunks, 8)."""
+        kk = max(1, min(n_chunks, 8))
+        return 1 << (kk.bit_length() - 1)
+
+    @staticmethod
+    def _vote_language(audio: np.ndarray, ids: list[int], probs: np.ndarray) -> int:
+        """Average the language distributions of the speech-bearing voter
+        chunks and return the winning index."""
+        rms = np.array(
+            [
+                float(np.sqrt(np.mean(np.square(
+                    audio[ci * CHUNK_SAMPLES : (ci + 1) * CHUNK_SAMPLES],
+                    dtype=np.float64,
+                )) + 1e-12))
+                for ci in ids
+            ]
+        )
+        # -54 dBFS absolute floor AND within 20 dB of the loudest chunk
+        voters = np.flatnonzero((rms >= 2e-3) & (rms >= 0.1 * rms.max()))
+        if voters.size == 0:
+            voters = np.array([int(rms.argmax())])
+        return int(np.asarray(probs)[voters].mean(axis=0).argmax())
+
+    def _detect_language_voting(self, audio: np.ndarray, audio_states, chunk_ids: list[int]) -> int:
+        """Detect the language by voting over the first speech-bearing
+        chunks rather than trusting chunk 0 alone."""
+        k = self._voting_k(len(chunk_ids))
+        _, probs = decode_lib.detect_language(self.params, self.cfg, audio_states[:k])
+        return self._vote_language(audio, chunk_ids[:k], probs.cpu().numpy())
+
+    def _language_code(self) -> str | None:
+        lang = self._active_language if self._active_language is not None else self.language
+        if lang is None or not self.cfg.is_multilingual:
+            return None
+        langs = WHISPER_LANGUAGES_V3 if self.special.num_languages >= 100 else WHISPER_LANGUAGES
+        return langs[lang] if 0 <= lang < len(langs) else None
+
+    # -- main entry --------------------------------------------------------------
+
+    def _emit_live_segments(self, on_segment, token_rows, window_idx, content_s, time_map) -> None:
+        """Stream the given windows' segments to on_segment, in original-
+        timeline stamps, as each slab's decode lands."""
+        offs = np.asarray(window_idx, np.float64) * 30.0
+        durs = np.clip(content_s - offs, 0.0, 30.0)
+        for seg in decode_lib.tokens_to_segments(
+            token_rows, self.special, offs, self.tokenizer.decode, chunk_durations_s=durs,
+        ):
+            on_segment({
+                **seg,
+                "start": round(time_map.to_original(seg["start"]), 3),
+                "end": round(time_map.to_original(seg["end"]), 3),
+            })
+
+    def transcribe(
+        self,
+        audio: "np.ndarray | str | os.PathLike",
+        *,
+        sample_rate: int = 16_000,
+        remove_silence: bool = True,
+        clip_timestamps: list[tuple[float, float]] | None = None,
+        time_map: TimeMap | None = None,
+        progress: Callable[[float], None] | None = None,
+        on_segment: Callable[[dict], None] | None = None,
+    ) -> dict:
+        """Full transcription of arbitrary-length mono 16 kHz audio (or a
+        path).  Returns {"text", "segments", "duration", "rtf_x"[,
+        "language"]}, timestamps in the ORIGINAL timeline even when
+        silence was removed or clips were selected."""
+        t0 = time.perf_counter()
+        audio, sample_rate = ingest.load_if_path(audio, sample_rate)
+        if sample_rate != 16_000:
+            raise NotImplementedError(
+                f"sample_rate={sample_rate}: resampling is not ported yet; "
+                "pass 16 kHz audio or a file path (decoded at 16 kHz)"
+            )
+        audio = np.asarray(audio)
+        self._active_language = None  # re-detected per call
+        duration_s = len(audio) / sample_rate
+
+        if clip_timestamps and time_map is not None:
+            raise ValueError(
+                "clip_timestamps cannot be combined with an explicit time_map"
+            )
+        if time_map is None:
+            clip_map = None
+            if clip_timestamps:
+                clips = []
+                for s, e in clip_timestamps:
+                    s2 = min(max(0.0, float(s)), duration_s)
+                    e2 = min(max(0.0, float(e)), duration_s)
+                    if e2 > s2:
+                        clips.append((s2, e2))
+                if not clips:
+                    raise ValueError(
+                        f"clip_timestamps {clip_timestamps!r} selects no audio "
+                        f"within the {duration_s:.1f}s recording"
+                    )
+                clip_map = TimeMap(clips)
+                audio = np.concatenate(
+                    [audio[int(s * 16_000): int(e * 16_000)] for s, e in clips]
+                )
+            if remove_silence and len(audio) > 2 * 16_000:
+                audio, intervals = frontend.trim_silence_host(audio)
+                if clip_map is not None:
+                    intervals = timestamps_lib.compose_intervals(clip_map, intervals)
+                time_map = TimeMap(intervals)
+            elif clip_map is not None:
+                time_map = clip_map
+            else:
+                time_map = TimeMap.identity(duration_s)
+
+        n_chunks = max(1, math.ceil(len(audio) / CHUNK_SAMPLES))
+        slab = min(_bucket(n_chunks), self._slab_cap)
+        n_slabs = math.ceil(n_chunks / slab)
+        content_s = len(audio) / 16_000.0
+        token_rows: list[np.ndarray] = []
+        meta_rows: list[dict] = []
+        for si in range(n_slabs):
+            lo = si * slab
+            real = min(slab, n_chunks - lo)
+            audio_states = self._frontend_encode(
+                self._chunk_slab(audio, list(range(lo, lo + real)), slab)
+            )
+            if (
+                si == 0
+                and self.auto_language
+                and self.language is None
+                and self.cfg.is_multilingual
+            ):
+                self._active_language = self._detect_language_voting(
+                    audio, audio_states, list(range(real))
+                )
+            toks, meta = self._collect_slab(self._run_decode(audio_states), audio_states, real)
+            del audio_states
+            token_rows.append(toks)
+            meta_rows.append(meta)
+            if on_segment is not None:
+                self._emit_live_segments(
+                    on_segment, toks, lo + np.arange(real, dtype=np.float64),
+                    content_s, time_map,
+                )
+            if progress:
+                progress(0.1 + 0.8 * (si + 1) / n_slabs)
+
+        tokens = np.concatenate(token_rows, axis=0)
+        chunk_meta = {k: np.concatenate([m[k] for m in meta_rows]) for k in meta_rows[0]}
+        tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
+        return self._finalize(
+            tokens, n_chunks, duration_s, time_map, t0, progress,
+            audio=audio, patches=patches, chunk_meta=chunk_meta,
+        )
+
+    def _finalize(
+        self, tokens, n_chunks, duration_s, time_map, t0, progress,
+        *, audio, patches=None, chunk_meta=None,
+    ) -> dict:
+        """Shared tail: tokens -> segments -> result dict."""
+        offsets = np.arange(n_chunks, dtype=np.float64) * 30.0
+        # actual audio seconds per chunk bound unclosed trailing segments
+        content_s = len(audio) / 16_000.0
+        durations = np.clip(content_s - offsets, 0.0, 30.0)
+        all_rows, all_offsets, all_durations = tokens, offsets, durations
+        all_meta = chunk_meta
+        if patches is not None:
+            all_rows = np.concatenate([tokens[:n_chunks], patches["tokens"]])
+            all_offsets = np.concatenate([offsets, patches["offsets"]])
+            all_durations = np.concatenate([durations, patches["durations"]])
+            if chunk_meta is not None:
+                all_meta = {
+                    k: np.concatenate([chunk_meta[k][:n_chunks], patches["meta"][k]])
+                    for k in chunk_meta
+                }
+        row_meta = None
+        if all_meta is not None:
+            row_meta = [
+                {
+                    "temperature": float(all_meta["temperature"][i]),
+                    "avg_logprob": float(all_meta["avg_logprob"][i]),
+                    "compression_ratio": float(all_meta["compression_ratio"][i]),
+                    "no_speech_prob": float(all_meta["no_speech_prob"][i]),
+                }
+                for i in range(len(all_rows))
+            ]
+        segments = decode_lib.tokens_to_segments(
+            all_rows, self.special, all_offsets, self.tokenizer.decode,
+            chunk_durations_s=all_durations, row_meta=row_meta,
+        )
+        segments.sort(key=lambda s: (s["start"], s["end"]))
+        for seg in segments:
+            seg["start"] = round(time_map.to_original(seg["start"]), 3)
+            seg["end"] = round(time_map.to_original(seg["end"]), 3)
+        for i, seg in enumerate(segments):
+            seg["id"] = i
+        elapsed = time.perf_counter() - t0
+        if progress:
+            progress(1.0)
+        out = {
+            "text": " ".join(s["text"] for s in segments),
+            "segments": segments,
+            "duration": duration_s,
+            "rtf_x": duration_s / max(elapsed, 1e-9),
+        }
+        lang_code = self._language_code()
+        if lang_code is not None:
+            out["language"] = lang_code
+        return out
+
+    def transcribe_batch(self, audios, **kw):
+        raise NotImplementedError(
+            "transcribe_batch (cross-request batching) is not ported yet"
+        )

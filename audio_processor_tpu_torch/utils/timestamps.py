@@ -1,0 +1,65 @@
+"""Trim-time mapping: silence-trimmed timeline -> original recording.
+
+A copy of the JAX package's ``utils/timestamps.py`` (TimeMap and
+compose_intervals): the port imports nothing from that package.
+"""
+from __future__ import annotations
+
+import bisect
+from dataclasses import dataclass, field
+
+
+@dataclass
+class TimeMap:
+    """Maps times in a silence-trimmed signal back to the original timeline.
+
+    Built from the kept_intervals returned by ops.frontend.trim_silence_host.
+    Needed so transcript timestamps refer to the *original* recording even
+    after silence removal shifted everything.
+    """
+
+    intervals: list[tuple[float, float]]
+    _trimmed_starts: list[float] = field(default_factory=list, repr=False)
+
+    def __post_init__(self):
+        t = 0.0
+        self._trimmed_starts = []
+        for s, e in self.intervals:
+            self._trimmed_starts.append(t)
+            t += e - s
+        self.trimmed_duration = t
+
+    def to_original(self, t: float) -> float:
+        """Trimmed-timeline seconds -> original-timeline seconds."""
+        if not self.intervals:
+            return t
+        i = bisect.bisect_right(self._trimmed_starts, t) - 1
+        i = max(0, min(i, len(self.intervals) - 1))
+        s, e = self.intervals[i]
+        return min(s + (t - self._trimmed_starts[i]), e)
+
+    @classmethod
+    def identity(cls, duration: float) -> "TimeMap":
+        return cls([(0.0, duration)])
+
+
+def compose_intervals(
+    outer: "TimeMap", inner_intervals: list[tuple[float, float]]
+) -> list[tuple[float, float]]:
+    """Map kept-intervals expressed in OUTER's trimmed timeline back to the
+    original timeline, splitting any interval that spans an outer-interval
+    boundary (where to_original is discontinuous).
+
+    Used to stack clip_timestamps with silence trimming: clips cut the
+    original first, the trim then cuts the clipped signal, and segment
+    timestamps must still come out in original-recording seconds.
+    """
+    out: list[tuple[float, float]] = []
+    for s, e in inner_intervals:
+        for j, (os_, oe) in enumerate(outer.intervals):
+            ts = outer._trimmed_starts[j]
+            te = ts + (oe - os_)
+            a, b = max(s, ts), min(e, te)
+            if b > a:
+                out.append((os_ + (a - ts), os_ + (b - ts)))
+    return out

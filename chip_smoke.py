@@ -1,0 +1,455 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the main path's shapes and
+times it, drives ``Transcriber.transcribe`` at whisper-small width with
+random weights, and runs the bench workload (log-mel + encode + 96-token
+int4 greedy decode, bf16, EOT suppressed) at batch 32 and at the default
+slab of 128.  Prints one JSON line
+per phase, the kernel table, the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
+when there is no card, when the port is not beside this script, or when
+any phase fails.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str, code: int = 1) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if proc.returncode != 0:
+        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over iters calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_rows(fn) -> list[tuple[float, str, int]]:
+    """(device ms, kernel name, calls) of every kernel fn() launches, from
+    torch.profiler's kernel events (an aten op's row repeats its kernels'
+    time, so only kernel rows count), largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.key, e.count))
+    return sorted(rows, reverse=True)
+
+
+def device_ms(fn, iters: int) -> float | str:
+    """Mean device time per call of fn's kernels: for calls shorter than
+    their host launch overhead, where CUDA events would time the host."""
+    fn()
+    rows = kernel_rows(lambda: [fn() for _ in range(iters)])
+    if not rows:
+        return "not measured (the profiler recorded no kernel time)"
+    return sum(r[0] for r in rows) / iters
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def speech_like(seconds: float, seed: int) -> np.ndarray:
+    """Seeded synthetic 'speech': AM-modulated harmonics, noise, pauses."""
+    rng = np.random.default_rng(seed)
+    sr = 16_000
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.5 * t)
+    sig = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
+    envelope = (np.sin(2 * np.pi * 1.3 * t) > -0.2).astype(np.float32)
+    sig = sig * envelope * 0.3 + rng.normal(0, 0.01, len(t))
+    return sig.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_log_mel(dev, kernels) -> dict:
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, n = 8, frontend.N_SAMPLES
+    audio = torch.randn(b, n, device=dev, generator=g) * 0.2
+    audio[1] *= 1e-3  # one quiet window
+    out = {"phase": "log_mel", "batch": b}
+    for n_mels in (80, 128):
+        got = log_mel(audio, n_mels)
+        torch.cuda.synchronize()
+        ref = frontend.log_mel_spectrogram(audio, n_mels)
+        err = (got - ref).abs().max().item()
+        if not (got.shape == ref.shape == (b, n_mels, frontend.N_FRAMES)) or not err <= 1e-4:
+            fail(f"log_mel n_mels={n_mels}: max abs err {err} > 1e-4 or bad shape")
+        out[f"max_abs_err_{n_mels}"] = err
+
+    window = torch.hann_window(frontend.N_FFT, device=dev)
+    filters = torch.from_numpy(frontend.mel_filterbank(80)).to(dev)
+
+    def library():  # torch.stft-based log-mel: the yardstick, never used by the port
+        spec = torch.stft(audio, frontend.N_FFT, frontend.HOP_LENGTH, window=window,
+                          center=True, pad_mode="reflect", return_complex=True)
+        mel = filters @ spec[..., :-1].abs().square()
+        log_spec = torch.clamp(mel, min=1e-10).log10()
+        log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+        return (log_spec + 4.0) / 4.0
+
+    lib_err = (library() - frontend.log_mel_spectrogram(audio, 80)).abs().max().item()
+    frames = n // frontend.HOP_LENGTH
+    n_fft, n_freqs = frontend.N_FFT, frontend.N_FREQS
+    # bytes: audio in and log-mel out once per window, the bases and the
+    # filterbank once per call
+    nbytes = b * (4 * n + 4 * frames * 80) + 4 * (2 * n_fft * n_freqs + n_freqs * 80)
+    # operations the function needs: per frame, the window multiply, a real
+    # FFT (2.5 N log2 N, half a complex FFT's 5 N log2 N), power (3 a bin),
+    # the mel projection (2 a bin and mel) and the log and clamp (3 a mel)
+    per_frame = (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs
+                 + 2 * n_freqs * 80 + 3 * 80)
+    bms, by = bound_ms(nbytes, b * frames * per_frame)
+    # the kernel's own algorithm (the TPU kernel's): the DFT as two matmuls
+    # against the (400, 201) bases, about 8x the operations of the FFT
+    dft_flops = b * frames * (2 * 2 * n_fft * n_freqs + 2 * n_freqs * 80)
+    dft_bms = bound_ms(nbytes, dft_flops)[0]
+    ms = time_ms(lambda: log_mel(audio, 80), iters=20)
+    plain = time_ms(lambda: frontend.log_mel_spectrogram(audio, 80), iters=5)
+    lib = time_ms(library, iters=10)
+    out.update(kernel_ms=ms, plain_ms=plain, library_ms=lib, library_max_abs_err=lib_err,
+               bound_ms=bms, bound_by=by, dft_algorithm_bound_ms=dft_bms, n_mels_timed=80)
+    kernels["log_mel"] = dict(
+        name="log_mel", route="cuda", source="audio_processor_tpu_torch/csrc/log_mel.cu",
+        replaces="audio_processor_tpu/ops/pallas/mel_kernel.py:61",
+        max_abs_err=max(out["max_abs_err_80"], out["max_abs_err_128"]),
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        dft_algorithm_bound_ms=dft_bms,
+        shape=f"audio ({b}, {n}) f32 -> ({b}, 80, {frames})",
+    )
+    return out
+
+
+def phase_cross_attn(dev, kernels) -> dict:
+    from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+
+    n_layers, b, h, dh, tpad, valid = 12, 128, 12, 64, 1536, 1500
+    g = torch.Generator(device=dev).manual_seed(1)
+    k4 = torch.empty((n_layers, b, h, dh, tpad // 2), dtype=torch.int8, device=dev)
+    v4 = torch.empty((n_layers, b, h, tpad // 2, dh), dtype=torch.int8, device=dev)
+    for l in range(n_layers):  # pack one layer at a time (bounded transient)
+        k8 = torch.randint(-7, 8, (b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+        v8 = torch.randint(-7, 8, (b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+        k4[l], v4[l] = da.pack_int4_time(k8, v8)
+    del k8, v8
+    out = {"phase": "cross_attn_int4", "shape": [n_layers, b, h, dh, tpad], "valid_len": valid}
+    worst = 0.0
+    for tq in (1, 4):
+        q = torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.1
+        for l in (0, n_layers - 1):
+            got = da.cross_attention_int4_stacked(q, k4, v4, l, valid_len=valid)
+            torch.cuda.synchronize()
+            ref = da.cross_attention_int4_reference(q, k4[l], v4[l], valid_len=valid)
+            err = (got - ref).abs().max().item()
+            # integer-unit outputs (|x| <= 7), f32 sums over 1536 keys in
+            # another order than the plain version's
+            if not err <= 5e-4:
+                fail(f"cross_attn_int4 tq={tq} layer={l}: max abs err {err} > 5e-4")
+            worst = max(worst, err)
+            out[f"max_abs_err_tq{tq}_l{l}"] = err
+
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.1
+    layer_iter = iter(range(10**9))
+
+    def kernel():  # cycle the layers: each call streams one layer from HBM
+        return da.cross_attention_int4_stacked(q, k4, v4, next(layer_iter) % n_layers, valid_len=valid)
+
+    ms = time_ms(kernel, iters=48)
+    plain = time_ms(lambda: da.cross_attention_int4_reference(q, k4[0], v4[0], valid_len=valid), iters=3)
+
+    # yardstick: the same attention by SDPA on K/V dequantized to bf16 in
+    # time order (valid positions only), one layer; never used by the port
+    lo, hi = da._unpack_nibbles_u(k4[0])
+    k_t = torch.stack([lo, hi], dim=-1).reshape(b, h, dh, tpad)[..., :valid] - 8
+    lo, hi = da._unpack_nibbles_u(v4[0])
+    v_t = torch.stack([lo, hi], dim=-2).reshape(b, h, tpad, dh)[:, :, :valid] - 8
+    k_bf = k_t.transpose(-1, -2).to(torch.bfloat16).contiguous()
+    v_bf = v_t.to(torch.bfloat16).contiguous()
+    q_bf = q.transpose(1, 2).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(q_bf, k_bf, v_bf).float().transpose(1, 2)
+               - da.cross_attention_int4_reference(q, k4[0], v4[0], valid_len=valid)).abs().max().item()
+    lib = time_ms(lambda: sdpa(q_bf, k_bf, v_bf), iters=20)
+
+    def needed(rows):  # bytes (valid K/V nibbles, q in, out) and FLOPs of one call
+        return (2 * rows * h * dh * math.ceil(valid / 2) + 2 * 4 * rows * h * dh,
+                4 * rows * h * dh * valid)
+
+    bms, by = bound_ms(*needed(b))
+    out.update(kernel_ms=ms, kernel_device_ms=device_ms(kernel, iters=48), plain_ms=plain,
+               library_ms=lib, library_max_abs_err=lib_err, bound_ms=bms, bound_by=by,
+               timed="Tq=1, B=128, one layer per call")
+
+    # the transcribe phase's own slab: 8 windows
+    k4s, v4s = k4[:, :8].contiguous(), v4[:, :8].contiguous()
+    qs = q[:8].contiguous()
+    got = da.cross_attention_int4_stacked(qs, k4s, v4s, 3, valid_len=valid)
+    torch.cuda.synchronize()
+    err = (got - da.cross_attention_int4_reference(qs, k4s[3], v4s[3], valid_len=valid)).abs().max().item()
+    if not err <= 5e-4:
+        fail(f"cross_attn_int4 B=8: max abs err {err} > 5e-4")
+    worst = max(worst, err)
+    out.update(max_abs_err_b8=err, bound_ms_b8=bound_ms(*needed(8))[0], kernel_ms_b8=device_ms(
+        lambda: da.cross_attention_int4_stacked(qs, k4s, v4s, 3, valid_len=valid), iters=48))
+    kernels["cross_attn_int4"] = dict(
+        name="cross_attn_int4", route="cuda",
+        source="audio_processor_tpu_torch/csrc/cross_attn_int4.cu",
+        replaces="audio_processor_tpu/ops/pallas/decode_attention.py:411",
+        max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=f"q ({b}, 1, {h}, {dh}) f32 vs layer of K/V ({n_layers}, {b}, {h}, ., {tpad // 2}) int4x2",
+        ms_b8=out["kernel_ms_b8"], bound_ms_b8=out["bound_ms_b8"],
+    )
+    return out
+
+
+def phase_check(dev) -> dict:
+    """Small-config reference check of the whole chain on full 30 s
+    windows: kernel A -> encoder -> int4 greedy decode through kernel B on
+    the card, against the CPU's plain path, float32.  The tokens must be
+    equal."""
+    from audio_processor_tpu_torch.models.whisper import decode, model
+    from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    cfg = WhisperConfig(name="check", n_mels=80, n_audio_ctx=1500, n_audio_state=64,
+                        n_audio_head=2, n_audio_layer=2, n_vocab=1024, n_text_ctx=64,
+                        n_text_state=64, n_text_head=2, n_text_layer=2)
+    params = model.init_params(cfg, torch.Generator().manual_seed(2))
+    st = decode.SpecialTokens.for_config(cfg)
+    audio = torch.from_numpy(np.stack([speech_like(30.0, 3), speech_like(30.0, 4)]))
+    res = {}
+    for where in ("cpu", "cuda"):
+        p = model.map_params(lambda t: t.to(where), params)
+        states = model.encode(p, cfg, log_mel(audio.to(where), 80))
+        out = decode.greedy_decode(p, cfg, states, sot_sequence=tuple(st.sot_sequence()),
+                                   max_new_tokens=24, quantize_cross_kv=True, kv_bits=4)
+        res[where] = (states.cpu(), out.tokens.cpu())
+    enc_err = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
+    same = torch.equal(res["cpu"][1], res["cuda"][1])
+    if not (torch.isfinite(res["cuda"][0]).all() and enc_err <= 2e-3 and same):
+        fail(f"check: encoder max abs err {enc_err}, greedy tokens equal: {same}")
+    return {"phase": "check", "encoder_max_abs_err_vs_cpu": enc_err,
+            "greedy_tokens_equal_cpu": same}
+
+
+def phase_transcribe(dev, counters) -> tuple[dict, object]:
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    t0 = time.perf_counter()
+    tr = Transcriber.random_init("small", device=dev)  # bf16, int4 cross-KV, fallback off
+    init_s = time.perf_counter() - t0
+    audio = speech_like(240.0, 5)
+    cold = tr.transcribe(audio)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    warm = tr.transcribe(audio)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(launches.values()):
+        fail(f"transcribe: a kernel of the main path never launched: {launches}")
+    for out in (cold, warm):
+        if not math.isclose(out["duration"], 240.0):
+            fail(f"transcribe: duration {out['duration']}")
+        for s in out["segments"]:
+            if not (0.0 <= s["start"] <= s["end"] <= 240.0 + 1e-6 and np.isfinite(s["avg_logprob"])):
+                fail(f"transcribe: bad segment {s}")
+    return {
+        "phase": "transcribe", "model": "small (random weights)", "audio_s": 240.0,
+        "windows": math.ceil(len(audio) / 480_000), "init_s": init_s,
+        "cold_rtf_x": cold["rtf_x"], "warm_rtf_x": warm["rtf_x"],
+        "segments": len(warm["segments"]), "language": warm.get("language"),
+        "launches": launches,
+    }, tr
+
+
+def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool) -> dict:
+    """The JAX package's bench.py headline workload on the port: int16 30 s
+    chunks -> log-mel -> encode -> 96-token int4 greedy decode, EOT
+    suppressed, bf16, ``bs`` windows a batch (bench.py and the
+    Transcriber's default slab use 128)."""
+    from audio_processor_tpu_torch.models.whisper import decode, model
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    tokens = 96
+    cfg, st = tr.cfg, tr.special
+    rng = np.random.default_rng(0)
+    t = np.arange(frontend.N_SAMPLES) / frontend.SAMPLE_RATE
+    base = (0.3 * np.sin(2 * np.pi * 150 * t) * (np.sin(2 * np.pi * 1.1 * t) > -0.3)).astype(np.float32)
+    batch = np.stack([base + rng.normal(0, 0.01, frontend.N_SAMPLES).astype(np.float32) for _ in range(bs)])
+    audio_i16 = torch.from_numpy(np.clip(batch * 32768.0, -32768, 32767).astype(np.int16)).to(dev)
+    suppress = torch.zeros(cfg.n_vocab, dtype=torch.bool, device=dev)
+    suppress[st.eot] = True
+
+    def encode():
+        mel = log_mel(audio_i16.float() / 32768.0, cfg.n_mels)
+        return model.encode(tr.params, cfg, mel, compute_dtype=torch.bfloat16)
+
+    def run_decode(states):
+        return decode.greedy_decode(
+            tr.params, cfg, states, sot_sequence=tuple(st.sot_sequence()),
+            max_new_tokens=tokens, use_timestamps=True, suppress_mask=suppress,
+            dtype_name="bfloat16", quantize_cross_kv=True, kv_bits=4,
+        )
+
+    # warm-up, which also reads the peak memory of each half at this batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    states = encode()
+    torch.cuda.synchronize()
+    enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    res = run_decode(states)
+    torch.cuda.synchronize()
+    dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del states
+    if not (res.tokens.shape[0] == bs and int(res.lengths.min()) == tokens):
+        fail(f"bench B={bs}: EOT-suppressed decode stopped early: {res.lengths.tolist()}")
+    # the decode loop is host-bound, and host time varies from call to call:
+    # time several batches and report the median with its range
+    enc_ms, dec_ms = [], []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        states = encode()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_decode(states).tokens.cpu()
+        t2 = time.perf_counter()
+        enc_ms.append(1e3 * (t1 - t0))
+        dec_ms.append(1e3 * (t2 - t1))
+    batch_ms = [e + d for e, d in zip(enc_ms, dec_ms)]
+    med = float(np.median(batch_ms))
+    out = {
+        "phase": "bench", "model": "small", "batch": bs, "tokens": tokens, "dtype": "bfloat16",
+        "batches_timed": len(batch_ms), "rtf_x": bs * 30.0 / (med / 1e3),
+        "rtf_x_range": [bs * 30.0e3 / max(batch_ms), bs * 30.0e3 / min(batch_ms)],
+        "encode_ms_per_batch": float(np.median(enc_ms)),
+        "decode_ms_per_batch": float(np.median(dec_ms)),
+        "ms_per_decode_step": float(np.median(dec_ms)) / tokens,
+        "ms_per_decode_step_range": [min(dec_ms) / tokens, max(dec_ms) / tokens],
+        "weights_gb": base_gb, "encode_peak_mem_gb": enc_peak_gb,
+        "decode_peak_mem_gb": dec_peak_gb,
+    }
+    if profile:
+        out["profile"] = profile_decode(lambda: run_decode(encode()).tokens.cpu(), med)
+    return out
+
+
+def profile_decode(fn, unprofiled_ms: float) -> dict | str:
+    """Device time by kernel over one encode+decode batch.  The busy share
+    divides the kernel time by the UNPROFILED wall time of the same work,
+    since the profiler slows the host several-fold."""
+    rows = kernel_rows(fn)
+    if not rows:
+        return "not measured (the profiler recorded no kernel time)"
+    total = sum(r[0] for r in rows)
+    return {
+        "kernel_ms": total, "unprofiled_wall_ms": unprofiled_ms,
+        "device_busy_share": total / unprofiled_ms,
+        "top": [{"name": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]],
+    }
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU", 2)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        from audio_processor_tpu_torch.ops.kernels import build
+        from audio_processor_tpu_torch.ops.kernels.decode_attention import cross_attention_int4_stacked
+        from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+        from audio_processor_tpu_torch.runtime.device import resolve_device
+    except ImportError as exc:
+        fail(f"the port (audio_processor_tpu_torch) is not beside this script: {exc}", 3)
+    t_start = time.perf_counter()
+    dev = resolve_device("cuda")  # also turns TF32 off
+    card = card_line()
+    emit({"phase": "device", "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
+    t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    logs = build.build(["log_mel", "cross_attn_int4"], ptxas_report=True)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+                    for k, v in logs.items()}})
+    kernels: dict[str, dict] = {}
+    emit(phase_log_mel(dev, kernels))
+    emit(phase_cross_attn(dev, kernels))
+    emit(phase_check(dev))
+    summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
+    emit(summary)
+    kernels["log_mel"]["launches"] = summary["launches"]["log_mel"]
+    kernels["cross_attn_int4"]["launches"] = summary["launches"]["cross_attention_int4_stacked"]
+    emit(phase_bench(dev, tr, bs=32, n_timed=5, profile=True))
+    emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    print(card, flush=True)
+    emit({"kernels": list(kernels.values())})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,7 @@
 
     python -m audio_processor_tpu_torch.cli transcribe meeting.wav --json
     python -m audio_processor_tpu_torch.cli transcribe meeting.wav \\
-        --npz small.npz --device cuda
+        --npz small.npz --device cuda --beam 5 --condition
 
 Without --npz the weights are random (seeded): the flow runs end to end,
 the text is meaningless.  --device defaults to the card; --device cpu runs
@@ -23,6 +23,19 @@ def cmd_transcribe(args) -> None:
         from .models.whisper.tokenizer import language_index
 
         kw["language"] = language_index(args.language, num_languages=None)
+    # decoding options, as the JAX package's CLI maps them
+    if args.beam:
+        kw["beam_size"] = args.beam
+    for name in ("best_of", "patience", "length_penalty"):
+        if getattr(args, name) is not None:
+            kw[name] = getattr(args, name)
+    for name in ("initial_prompt", "prefix"):
+        if getattr(args, name):
+            kw[name] = getattr(args, name)
+    if args.carry_initial_prompt:
+        kw["carry_initial_prompt"] = True
+    if args.condition:
+        kw["condition_on_previous_text"] = True
     if args.npz:
         t = Transcriber.from_npz(
             args.npz, tokenizer_path=args.tokenizer, device=args.device, **kw
@@ -50,6 +63,22 @@ def main(argv: list[str] | None = None) -> None:
     t.add_argument("--language", help="ISO code (e.g. en); default: auto-detect")
     t.add_argument("--keep-silence", action="store_true")
     t.add_argument("--json", action="store_true")
+    t.add_argument("--beam", type=int, default=0, help="beam size (0 = greedy)")
+    t.add_argument("--patience", type=float, default=None,
+                   help="beam patience (openai's patience; default 1.0)")
+    t.add_argument("--length-penalty", dest="length_penalty", type=float, default=None,
+                   help="beam ranking exponent, Google-NMT form (default: average logprob)")
+    t.add_argument("--best-of", dest="best_of", type=int, default=None,
+                   help="sampling candidates on T>0 decodes (openai's best_of; default 5)")
+    t.add_argument("--initial-prompt", dest="initial_prompt",
+                   help="text context for the first window (openai's initial_prompt)")
+    t.add_argument("--carry-initial-prompt", dest="carry_initial_prompt", action="store_true",
+                   help="prompt EVERY window with --initial-prompt (openai's carry_initial_prompt)")
+    t.add_argument("--prefix", help="text the decode continues from, left out of the output "
+                   "(openai's DecodingOptions.prefix)")
+    t.add_argument("--condition", action="store_true",
+                   help="condition each window on the previous windows' text "
+                   "(openai's condition_on_previous_text, in window groups)")
     t.set_defaults(fn=cmd_transcribe)
     args = ap.parse_args(argv)
     args.fn(args)

@@ -1,21 +1,30 @@
-"""Batched KV-cache greedy/sampling decode for Whisper, in PyTorch.
+"""Batched KV-cache decode for Whisper, in PyTorch: greedy/sampling,
+prompted (per-row <|startofprev|> context) and beam search.
 
-The port of the JAX package's ``models/whisper/decode.py`` on this
-slice's path: special tokens and suppress lists, the KV cache (with the
-int4 nibble-packed cross cache), the cached decoder forward, Whisper's
-logit rules, the greedy/sampling loop with best_of ranking, language
-detection, and the host-side seek and segment helpers.
+The port of the JAX package's ``models/whisper/decode.py``: special tokens
+and suppress lists, the KV cache (the int4 nibble-packed and int8 kernel
+layouts of the cross cache), the cached decoder forward with left-padded
+per-row prompts, Whisper's logit rules, the greedy/sampling loop with
+best_of ranking, prompted greedy decode, beam search with openai's
+BeamSearchDecoder semantics, language detection, and the host-side seek
+and segment helpers.
 
 Differences in idiom from the JAX version:
   * The self-attention cache is head-major, (L, B, H, T_max, Dh), so the
     per-step attention matmuls read it without a transposing copy, and it
     is written IN PLACE (the JAX version's dynamic_update_slice returns a
-    new array), which saves a copy of the cache per step.
-  * The token loop is a Python loop that stops once every row has emitted
-    EOT (the JAX package's lax.while_loop condition).  The outputs are the
-    same: the JAX loop's extra final forward produces logits nobody reads.
+    new array), which saves a copy of the cache per step.  Beam search
+    reorders only the written positions of the self cache, in place (the
+    JAX version gathers the whole cache along the batch axis).
+  * The token loops are Python loops that stop once every row has emitted
+    EOT (greedy) or every element holds its finished hypotheses (beam), the
+    JAX package's lax.while_loop conditions.  The outputs are the same:
+    the JAX loops' extra final forward produces logits nobody reads.
   * Sampling at T > 0 draws from a ``torch.Generator`` seeded from
     ``rng_seed``; its numbers differ from ``jax.random``'s.
+  * Beam search breaks ties as ``jax.lax.top_k`` and the stable
+    ``jnp.argsort`` do, toward the lower index (``_top_k_lower_index``,
+    ``torch.argsort(stable=True)``); ``torch.topk`` promises no order.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 
 from ...ops.kernels.decode_attention import (
     cross_attention_int4_stacked,
+    cross_attention_int8,
     pack_int4_time,
 )
 from .config import WhisperConfig
@@ -169,12 +179,14 @@ def space_blank_token_id(tokenizer, st: SpecialTokens) -> int | None:
 class Cache:
     self_k: torch.Tensor  # (L, B, H, T_max, Dh), written in place
     self_v: torch.Tensor
-    # float: (L, B, Ta, H, Dh); int8: (L, B, Ta, H, Dh); int4 kernel
+    # float: (L, B, Ta, H, Dh); int8: (L, B, Ta, H, Dh); int8 kernel
+    # layout: K (L, B, H, Dh, Tpad), V (L, B, H, Tpad, Dh); int4 kernel
     # layout: K (L, B, H, Dh, Tpad/2), V (L, B, H, Tpad/2, Dh)
     cross_k: torch.Tensor
     cross_v: torch.Tensor
     cross_k_scale: torch.Tensor | None = None  # (L, B, 1, H, Dh)
     cross_v_scale: torch.Tensor | None = None
+    cross_bits: int = 8  # precision of a quantized cross cache: 8 or 4
 
 
 def _cross_kv(bp: Params, cfg: WhisperConfig, audio_states: torch.Tensor):
@@ -216,11 +228,13 @@ def init_cache(
 ) -> Cache:
     """Preallocate the self cache and precompute the cross cache.
 
-    quantize_cross_kv: int8 per (layer, batch, head, channel); with
-    kernel_layout and kv_bits=4 the cache is transposed, padded to
-    Tpad = ceil(Ta/128)*128 and nibble-packed for the int4 kernel.  The
-    quantized cache is built one layer at a time, so the float K/V of only
-    one layer is live at once (the result equals quantizing the stack).
+    quantize_cross_kv: int8 per (layer, batch, head, channel).  With
+    kernel_layout the cache is transposed to K (L, B, H, Dh, Tpad) and V
+    (L, B, H, Tpad, Dh) and zero-padded to Tpad = ceil(Ta/128)*128 for the
+    decode kernels; kv_bits=4 further quantizes to int4 and nibble-packs
+    the time axis.  The quantized cache is built one layer at a time, so
+    the float K/V of only one layer is live at once (the result equals
+    quantizing the stack).
     """
     b = audio_states.shape[0]
     n_layer, h = cfg.n_text_layer, cfg.n_text_head
@@ -233,17 +247,15 @@ def init_cache(
     if not quantize_cross_kv:
         ck, cv = precompute_cross_attn(params, cfg, audio)
         return Cache(self_k, self_v, ck.to(dtype), cv.to(dtype))
-    if kernel_layout and kv_bits not in (4,):
-        raise NotImplementedError(
-            "the int8 kernel-layout cross cache (the int8 decode kernel) is "
-            "not ported yet; use kv_bits=4, or kernel_layout=False for int8"
-        )
     bits = kv_bits if kernel_layout else 8
+    if bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     ta = audio.shape[1]
     tpad = ta + (-ta) % 128
     if kernel_layout:
-        ck = torch.empty((n_layer, b, h, dh, tpad // 2), dtype=torch.int8, device=dev)
-        cv = torch.empty((n_layer, b, h, tpad // 2, dh), dtype=torch.int8, device=dev)
+        cols = tpad // 2 if bits == 4 else tpad
+        ck = torch.empty((n_layer, b, h, dh, cols), dtype=torch.int8, device=dev)
+        cv = torch.empty((n_layer, b, h, cols, dh), dtype=torch.int8, device=dev)
     else:
         ck = torch.empty((n_layer, b, ta, h, dh), dtype=torch.int8, device=dev)
         cv = torch.empty_like(ck)
@@ -259,27 +271,38 @@ def init_cache(
             pad = tpad - ta
             k8 = torch.nn.functional.pad(k8.permute(0, 2, 3, 1), (0, pad))  # (B,H,Dh,Tpad)
             v8 = torch.nn.functional.pad(v8.permute(0, 2, 1, 3), (0, 0, 0, pad))  # (B,H,Tpad,Dh)
-            k8, v8 = pack_int4_time(k8, v8)
+            if bits == 4:
+                k8, v8 = pack_int4_time(k8, v8)
         ck[l] = k8
         cv[l] = v8
-    return Cache(self_k, self_v, ck, cv, ks, vs)
+    return Cache(self_k, self_v, ck, cv, ks, vs, cross_bits=bits)
 
 
 # ---------------------------------------------------------------------------
 # Cached decoder forward (prefill with T>1, or single-step with T=1)
 # ---------------------------------------------------------------------------
 
-def _cached_attention(q, kh, vh, t_valid=None):
+def _cached_attention(q, kh, vh, t_valid=None, min_valid=None):
     """q (B,T,H,Dh) against head-major keys/values kh, vh (B,H,Tk,Dh).
     t_valid: (T,) how many cache positions each query sees (causality
-    inside the prefill window); None = all of them.  Scores are softmaxed
-    in float32."""
+    inside the prefill window); None = all of them.  min_valid: (B,) first
+    visible cache position of each row, which hides the left padding of
+    prompted rows.  Scores are softmaxed in float32."""
     dh = q.shape[-1]
     qh = q.transpose(1, 2)  # (B, H, T, Dh)
     scores = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(dh))
     if t_valid is not None:
         pos = torch.arange(kh.shape[2], device=q.device)
         mask = pos[None, :] < t_valid[:, None]  # (T, Tk)
+        if min_valid is not None:
+            # padding queries must still see THEMSELVES: a fully masked row
+            # softmaxes to NaN, and 0 x NaN in the value sum then poisons
+            # every later layer for the real tokens too.  Real tokens sit at
+            # positions >= min_valid, so the self term changes nothing for
+            # them; pad outputs are finite and never read.
+            self_vis = pos[None, :] == (t_valid - 1)[:, None]  # (T, Tk)
+            vis = (pos[None, None, :] >= min_valid[:, None, None]) | self_vis[None]
+            mask = (mask[None] & vis)[:, None]  # (B, 1, T, Tk)
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs.to(q.dtype), vh)
@@ -293,6 +316,8 @@ def decoder_forward_cached(
     cache: Cache,
     pos: int,  # write offset into the self cache
     *,
+    pos_offset: torch.Tensor | None = None,  # (B,) per-row logical offset
+    min_valid: torch.Tensor | None = None,  # (B,) first visible cache slot
     compute_dtype: torch.dtype | None = None,
     kernel_layout: bool = False,
     logit_positions: tuple[int, ...] | None = None,
@@ -301,17 +326,27 @@ def decoder_forward_cached(
     """Run the decoder over T new tokens, writing their K/V into the cache
     at ``pos`` (in place).  Returns (logits (B, T', V) float32, cache).
 
-    kernel_layout: the quantized cross cache is in the int4 kernel layout
-    (init_cache's kernel_layout); it is read through kernel B.
+    pos_offset/min_valid serve LEFT-padded per-row prompts: a row whose
+    real tokens start at slot ``pad`` takes positional embeddings counted
+    from 0 at that slot (pos_offset=pad) and never attends to the padding
+    (min_valid=pad).
+    kernel_layout: the quantized cross cache is in the kernel layout
+    (init_cache's kernel_layout), read through kernel B (an int4 cache) or
+    the int8 kernel (an int8 cache).
     logit_positions: unembed only these token positions (the prefill reads
     the sot slot and the last position).
     unembed: the token embedding in float32, when the caller holds one
-    across steps (greedy_decode converts it once per decode).
+    across steps (the decode loops convert it once per decode).
     """
     p = params["decoder"]
     b, t = tokens.shape
     dtype = compute_dtype if compute_dtype is not None else cache.self_k.dtype
-    x = p["token_emb"][tokens].to(dtype) + p["pos_emb"][pos : pos + t].to(dtype)
+    if pos_offset is None:
+        pe = p["pos_emb"][pos : pos + t]
+    else:
+        steps = pos + torch.arange(t, device=tokens.device)
+        pe = p["pos_emb"][torch.clamp(steps[None, :] - pos_offset[:, None], min=0)]
+    x = p["token_emb"][tokens].to(dtype) + pe.to(dtype)
     t_valid = pos + torch.arange(t, device=tokens.device) + 1
     quantized = cache.cross_k_scale is not None
     n_head = cfg.n_text_head
@@ -326,7 +361,8 @@ def decoder_forward_cached(
         cache.self_v[l, :, :, pos : pos + t] = v_new.transpose(1, 2)
         # positions past pos+t are masked for every query: leave them out
         o = _cached_attention(
-            q, cache.self_k[l, :, :, : pos + t], cache.self_v[l, :, :, : pos + t], t_valid
+            q, cache.self_k[l, :, :, : pos + t], cache.self_v[l, :, :, : pos + t],
+            t_valid, min_valid,
         )
         x = x + linear(bp["attn"]["out"], merge_heads(o))
         # --- cross-attention against the precomputed encoder K/V
@@ -335,9 +371,14 @@ def decoder_forward_cached(
         if quantized:
             # K's dequant scale folds into q, V's after the probs matmul
             qx = qx * cache.cross_k_scale[l].to(qx.dtype)
-            if kernel_layout:
+            if kernel_layout and cache.cross_bits == 4:
                 ox = cross_attention_int4_stacked(
                     qx.float().contiguous(), cache.cross_k, cache.cross_v, l,
+                    valid_len=cfg.n_audio_ctx,
+                ).to(x.dtype)
+            elif kernel_layout:
+                ox = cross_attention_int8(
+                    qx.float().contiguous(), cache.cross_k[l], cache.cross_v[l],
                     valid_len=cfg.n_audio_ctx,
                 ).to(x.dtype)
             else:
@@ -461,13 +502,16 @@ def _sample_loop(
     rng_seed: int,
     last_init: torch.Tensor,  # (B,)
     penult_init: torch.Tensor,  # (B,)
+    pos_offset: torch.Tensor | None = None,
+    min_valid: torch.Tensor | None = None,
     compute_dtype=None,
     max_initial_ts_index: int | None = 50,
     kernel_layout: bool = False,
     unembed: torch.Tensor | None = None,
 ):
-    """Sample until every row has emitted EOT or max_new_tokens is reached.
-    Returns (tokens (B, max_new), lengths, sum_logprob)."""
+    """Sample until every row has emitted EOT or max_new_tokens is reached;
+    shared by plain and prompted decode.  Returns (tokens (B, max_new),
+    lengths, sum_logprob)."""
     b, dev = last_logits.shape[0], last_logits.device
     tb = st.timestamp_begin
     tokens = torch.full((b, max_new_tokens), st.eot, dtype=torch.long, device=dev)
@@ -507,7 +551,7 @@ def _sample_loop(
             break
         logits, _ = decoder_forward_cached(
             params, cfg, next_tok[:, None], cache, start_pos + step,
-            compute_dtype=compute_dtype, kernel_layout=kernel_layout, unembed=unembed,
+            pos_offset=pos_offset, min_valid=min_valid, compute_dtype=compute_dtype, kernel_layout=kernel_layout, unembed=unembed,
         )
         logits = logits[:, -1]
     lengths = (tokens != st.eot).sum(dim=-1)
@@ -531,6 +575,92 @@ def _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b, g):
     )
 
 
+def _kernel_layout(quantize_cross_kv: bool, use_pallas_kernel: bool, kv_bits: int) -> bool:
+    """The JAX package's rule: an int4 cache is always in the kernel layout;
+    an int8 one only when the kernel is asked for, else it is the plain int8
+    cache read through plain attention (init_cache then ignores kv_bits)."""
+    return quantize_cross_kv and (use_pallas_kernel or kv_bits == 4)
+
+
+def _no_speech_prob(st: SpecialTokens, cfg: WhisperConfig, sot_logits: torch.Tensor):
+    """P(<|nospeech|>) from the logits at the <|sot|> slot (B, V)."""
+    if st.no_speech < cfg.n_vocab:
+        return torch.softmax(sot_logits.float(), dim=-1)[:, st.no_speech]
+    return torch.zeros(sot_logits.shape[0], device=sot_logits.device)
+
+
+def _decode_rows(
+    params: Params,
+    cfg: WhisperConfig,
+    audio_states: torch.Tensor,  # (B, Ta, d)
+    prompt: torch.Tensor,  # (B, P) long, every row ending in the sot sequence
+    pad_len: torch.Tensor | None,  # (B,) left padding of each row, or None
+    *,
+    sot_len: int,
+    last_init: torch.Tensor,
+    penult_init: torch.Tensor,
+    max_new_tokens: int,
+    use_timestamps: bool,
+    suppress_mask,
+    space_blank_id,
+    dtype_name: str,
+    quantize_cross_kv: bool,
+    use_pallas_kernel: bool,
+    kv_bits: int,
+    temperature: float,
+    rng_seed: int,
+    best_of: int,
+    max_initial_ts_index: int | None,
+) -> DecodeResult:
+    """The greedy/sampling decode of greedy_decode and
+    prompted_greedy_decode: best_of expansion, cache, prefill (no-speech
+    read at the fixed sot slot), the sampling loop and the ranking."""
+    st = SpecialTokens.for_config(cfg)
+    dtype = getattr(torch, dtype_name)
+    b0 = audio_states.shape[0]
+    group = best_of if (best_of > 1 and temperature > 0) else 1
+    if group > 1:
+        audio_states = audio_states.repeat_interleave(group, dim=0)
+        prompt = prompt.repeat_interleave(group, dim=0)
+        last_init = last_init.repeat_interleave(group, dim=0)
+        penult_init = penult_init.repeat_interleave(group, dim=0)
+        if pad_len is not None:
+            pad_len = pad_len.repeat_interleave(group, dim=0)
+    b, p_len = prompt.shape
+    kernel_layout = _kernel_layout(quantize_cross_kv, use_pallas_kernel, kv_bits)
+    cache = init_cache(
+        params, cfg, audio_states, p_len + max_new_tokens, dtype=dtype,
+        quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
+        kv_bits=kv_bits,
+    )
+    unembed = params["decoder"]["token_emb"].float()
+    row_kw = dict(pos_offset=pad_len, min_valid=pad_len, compute_dtype=dtype,
+                  kernel_layout=kernel_layout, unembed=unembed)
+    # prefill; unembed only the sot slot (fixed: every row ends in the same
+    # sot sequence) and the last one
+    logits, cache = decoder_forward_cached(
+        params, cfg, prompt, cache, 0, logit_positions=(p_len - sot_len, -1), **row_kw,
+    )
+    no_speech_prob = _no_speech_prob(st, cfg, logits[:, 0])
+    tokens, lengths, sum_logprob = _sample_loop(
+        params, cfg, st, cache, logits[:, 1],
+        start_pos=p_len,
+        max_new_tokens=max_new_tokens,
+        use_timestamps=use_timestamps,
+        suppress_mask=suppress_mask,
+        space_blank_id=space_blank_id,
+        temperature=temperature,
+        rng_seed=rng_seed,
+        last_init=last_init,
+        penult_init=penult_init,
+        max_initial_ts_index=max_initial_ts_index,
+        **row_kw,
+    )
+    if group > 1:
+        return _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b0, group)
+    return DecodeResult(tokens, lengths, sum_logprob, no_speech_prob)
+
+
 def greedy_decode(
     params: Params,
     cfg: WhisperConfig,
@@ -543,6 +673,7 @@ def greedy_decode(
     space_blank_id: int | None = None,
     dtype_name: str = "float32",
     quantize_cross_kv: bool = False,
+    use_pallas_kernel: bool = False,
     kv_bits: int = 8,
     temperature: float = 0.0,
     rng_seed: int = 0,
@@ -554,55 +685,302 @@ def greedy_decode(
     temperature == 0 -> argmax; > 0 -> categorical sampling.  best_of > 1
     at temperature > 0 samples that many candidates per element (rows ride
     the batch axis) and returns the best by average logprob.
-    quantize_cross_kv with kv_bits=4 builds the int4 kernel-layout cache
-    (the CUDA kernel on the card); kv_bits=8 the int8 cache read through
-    plain attention.
+    quantize_cross_kv with kv_bits=4 builds the int4 kernel-layout cache,
+    read through kernel B on the card; with kv_bits=8 the int8 cache, in
+    the kernel layout read through the int8 kernel when use_pallas_kernel
+    (the JAX package's name for it), else read through plain attention.
+    """
+    b, dev = audio_states.shape[0], audio_states.device
+    prompt = torch.tensor(sot_sequence, dtype=torch.long, device=dev)[None].repeat(b, 1)
+    return _decode_rows(
+        params, cfg, audio_states, prompt, None,
+        sot_len=len(sot_sequence),
+        last_init=torch.full((b,), sot_sequence[-1], device=dev),
+        penult_init=torch.full((b,), sot_sequence[0], device=dev),
+        max_new_tokens=max_new_tokens, use_timestamps=use_timestamps,
+        suppress_mask=suppress_mask, space_blank_id=space_blank_id,
+        dtype_name=dtype_name, quantize_cross_kv=quantize_cross_kv,
+        use_pallas_kernel=use_pallas_kernel, kv_bits=kv_bits,
+        temperature=temperature, rng_seed=rng_seed, best_of=best_of,
+        max_initial_ts_index=max_initial_ts_index,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Prompted greedy decode (condition_on_previous_text, initial_prompt)
+# ---------------------------------------------------------------------------
+
+def prompted_greedy_decode(
+    params: Params,
+    cfg: WhisperConfig,
+    audio_states: torch.Tensor,  # (B, Ta, d)
+    prompt_tokens,  # (B, P) LEFT-padded rows whose suffix is the sot sequence
+    prompt_lens,  # (B,) real tokens per row (right-aligned)
+    *,
+    sot_len: int,  # length of the trailing sot sequence (the same for all rows)
+    max_new_tokens: int = 224,
+    use_timestamps: bool = True,
+    suppress_mask: torch.Tensor | None = None,
+    space_blank_id: int | None = None,
+    dtype_name: str = "float32",
+    quantize_cross_kv: bool = False,
+    use_pallas_kernel: bool = False,
+    kv_bits: int = 8,
+    temperature: float = 0.0,
+    rng_seed: int = 0,
+    best_of: int = 1,
+    max_initial_ts_index: int | None = 50,
+) -> DecodeResult:
+    """Greedy/sampling decode with PER-ROW prompts: openai-whisper's
+    <|startofprev|> + previous text + sot sequence, batched.  Rows are
+    left-padded to a common length; the padding is invisible (min_valid)
+    and each row's positions count from its first real token, exactly as
+    if it were decoded alone.  Options as in greedy_decode.
+    (build_prompt_rows makes the rows.)"""
+    dev = audio_states.device
+    prompt = torch.as_tensor(np.asarray(prompt_tokens), device=dev).long()
+    lens = torch.as_tensor(np.asarray(prompt_lens), device=dev).long()
+    p_len = prompt.shape[1]
+    return _decode_rows(
+        params, cfg, audio_states, prompt, p_len - lens,
+        sot_len=sot_len,
+        last_init=prompt[:, -1],
+        penult_init=prompt[:, -2] if p_len >= 2 else prompt[:, -1],
+        max_new_tokens=max_new_tokens, use_timestamps=use_timestamps,
+        suppress_mask=suppress_mask, space_blank_id=space_blank_id,
+        dtype_name=dtype_name, quantize_cross_kv=quantize_cross_kv,
+        use_pallas_kernel=use_pallas_kernel, kv_bits=kv_bits,
+        temperature=temperature, rng_seed=rng_seed, best_of=best_of,
+        max_initial_ts_index=max_initial_ts_index,
+    )
+
+
+def build_prompt_rows(
+    histories: list[list[int]],  # per-row previous-window TEXT tokens
+    sot_sequence: tuple[int, ...],
+    st: SpecialTokens,
+    ctx_tokens: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Left-padded prompt rows for prompted decode: [eot pad ...]
+    [<|startofprev|>][last <= ctx_tokens history tokens][sot sequence].
+    An empty history gives just the sot sequence, which decodes exactly as
+    plain greedy_decode does."""
+    sot = list(sot_sequence)
+    p_len = 1 + ctx_tokens + len(sot)
+    rows = np.full((len(histories), p_len), st.eot, np.int32)
+    lens = np.zeros(len(histories), np.int32)
+    for i, hist in enumerate(histories):
+        text = [t for t in hist if t < st.eot]
+        ctx = text[-ctx_tokens:] if ctx_tokens else []  # [-0:] is the whole list
+        real = ([st.startofprev] + ctx if ctx else []) + sot
+        rows[i, p_len - len(real):] = real
+        lens[i] = len(real)
+    return rows, lens
+
+
+# ---------------------------------------------------------------------------
+# Beam search
+# ---------------------------------------------------------------------------
+
+def _top_k_lower_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top k of each row of x (B, N), largest first, equal values in index
+    order: ``jax.lax.top_k``'s order.  torch.topk finds the k-th value;
+    among the entries equal to it the lowest indices are kept."""
+    kth = torch.topk(x, k, dim=-1).values[:, -1:]
+    above = x > kth
+    equal = x == kth
+    need = k - above.sum(dim=-1, keepdim=True)
+    take = above | (equal & (torch.cumsum(equal, dim=-1) <= need))
+    idx = take.nonzero()[:, 1].reshape(x.shape[0], k)  # ascending per row
+    vals = x.gather(1, idx)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return vals.gather(1, order), idx.gather(1, order)
+
+
+def beam_decode(
+    params: Params,
+    cfg: WhisperConfig,
+    audio_states: torch.Tensor,  # (B, Ta, d)
+    *,
+    sot_sequence: tuple[int, ...],
+    beam_size: int = 5,
+    max_new_tokens: int = 224,
+    use_timestamps: bool = True,
+    suppress_mask: torch.Tensor | None = None,
+    length_penalty: float | None = None,
+    patience: float = 1.0,
+    dtype_name: str = "float32",
+    quantize_cross_kv: bool = False,
+    use_pallas_kernel: bool = False,
+    kv_bits: int = 8,
+    prompt_tokens=None,  # (B, P) LEFT-padded rows (build_prompt_rows)
+    prompt_lens=None,  # (B,) real tokens per row
+    max_initial_ts_index: int | None = 50,
+    space_blank_id: int | None = None,
+) -> DecodeResult:
+    """Batched beam search with openai-whisper's BeamSearchDecoder
+    semantics.
+
+    Beams ride the batch axis: the cache holds B*K rows.  Each step takes
+    the top 2K of the K*V candidate scores per element; candidates ending
+    in EOT that rank above the K-th non-EOT one join the element's
+    FINISHED set (first come, never evicted, round(K * patience) of them);
+    the best K non-EOT candidates become the live beams, and the written
+    positions of the self cache are reordered to them.  The loop ends once
+    every element holds its finished hypotheses (openai's is_done);
+    elements still short at the token cap are topped up from the live beams
+    by raw score (openai's finalize).  The winner is ranked by sum_logprob /
+    length (length_penalty=None, openai's default) or by the Google-NMT
+    ((5 + len) / 6) ** length_penalty.  The cross cache is built from the
+    audio states repeated K times, as in JAX: each element's cross K/V is
+    projected, stored and read once per beam (K times the bytes), and it is
+    never reordered, since beams do not move between elements.
+
+    prompt_tokens/prompt_lens replace the uniform sot prefill with per-row
+    <|startofprev|> prompts, padding invisible as in prompted_greedy_decode;
+    the pad lengths are per element, so the beam reorder (which permutes
+    beams within an element) leaves them unchanged.  no_speech_prob is
+    read from beam 0's prefill (the beams are identical there).
     """
     st = SpecialTokens.for_config(cfg)
     dtype = getattr(torch, dtype_name)
-    b0 = audio_states.shape[0]
-    group = best_of if (best_of > 1 and temperature > 0) else 1
-    if group > 1:
-        audio_states = audio_states.repeat_interleave(group, dim=0)
     b, dev = audio_states.shape[0], audio_states.device
-    prompt_len = len(sot_sequence)
-    kernel_layout = quantize_cross_kv and kv_bits == 4
+    k = beam_size
+    m_fin = max(1, int(round(k * patience)))  # openai's max_candidates
+    cap = max(k, m_fin)  # finished-set width (finalize may top up to K)
+    prompted = prompt_tokens is not None
+    if prompted:
+        prompt_tokens = torch.as_tensor(np.asarray(prompt_tokens), device=dev).long()
+        prompt_lens = torch.as_tensor(np.asarray(prompt_lens), device=dev).long()
+    prompt_len = prompt_tokens.shape[1] if prompted else len(sot_sequence)
+    kernel_layout = _kernel_layout(quantize_cross_kv, use_pallas_kernel, kv_bits)
     cache = init_cache(
-        params, cfg, audio_states, prompt_len + max_new_tokens, dtype=dtype,
-        quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
+        params, cfg, audio_states.repeat_interleave(k, dim=0), prompt_len + max_new_tokens,
+        dtype=dtype, quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
         kv_bits=kv_bits,
     )
     unembed = params["decoder"]["token_emb"].float()
-
-    # prefill the SOT sequence; unembed only the sot slot and the last one
-    prompt = torch.tensor(sot_sequence, dtype=torch.long, device=dev)[None].repeat(b, 1)
-    logits, cache = decoder_forward_cached(
-        params, cfg, prompt, cache, 0, compute_dtype=dtype, kernel_layout=kernel_layout, logit_positions=(0, -1), unembed=unembed,
-    )
-    if st.no_speech < cfg.n_vocab:
-        no_speech_prob = torch.softmax(logits[:, 0], dim=-1)[:, st.no_speech]
+    row_kw = dict(compute_dtype=dtype, kernel_layout=kernel_layout, unembed=unembed)
+    if prompted:
+        prompt = prompt_tokens.repeat_interleave(k, dim=0)
+        pad_len = (prompt_len - prompt_lens).repeat_interleave(k, dim=0)  # (B*K,)
+        row_kw.update(pos_offset=pad_len, min_valid=pad_len)
+        last = prompt_tokens[:, -1, None].expand(b, k)
+        penult = prompt_tokens[:, -2 if prompt_len >= 2 else -1, None].expand(b, k)
     else:
-        no_speech_prob = torch.zeros(b, device=dev)
-
-    tokens, lengths, sum_logprob = _sample_loop(
-        params, cfg, st, cache, logits[:, 1],
-        start_pos=prompt_len,
-        max_new_tokens=max_new_tokens,
-        use_timestamps=use_timestamps,
-        suppress_mask=suppress_mask,
-        space_blank_id=space_blank_id,
-        temperature=temperature,
-        rng_seed=rng_seed,
-        last_init=torch.full((b,), sot_sequence[-1], device=dev),
-        penult_init=torch.full((b,), sot_sequence[0], device=dev),
-        compute_dtype=dtype,
-        max_initial_ts_index=max_initial_ts_index,
-        kernel_layout=kernel_layout,
-        unembed=unembed,
+        prompt = torch.tensor(sot_sequence, dtype=torch.long, device=dev)[None].repeat(b * k, 1)
+        last = torch.full((b, k), sot_sequence[-1], dtype=torch.long, device=dev)
+        penult = torch.full((b, k), sot_sequence[0], dtype=torch.long, device=dev)
+    sot_slot = prompt_len - len(sot_sequence)
+    logits, cache = decoder_forward_cached(
+        params, cfg, prompt, cache, 0, logit_positions=(sot_slot, -1), **row_kw,
     )
-    if group > 1:
-        return _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b0, group)
-    return DecodeResult(tokens, lengths, sum_logprob, no_speech_prob)
+    no_speech_prob = _no_speech_prob(st, cfg, logits[:, 0]).reshape(b, k)[:, 0]
+    logits = logits[:, 1]  # (B*K, V)
+
+    tb, eot, v = st.timestamp_begin, st.eot, logits.shape[-1]
+    tokens = torch.full((b, k, max_new_tokens), eot, dtype=torch.long, device=dev)
+    # only beam 0 is live at first (the prompts are identical; openai gets
+    # the same from its candidate dict collapsing equal sequences)
+    scores = torch.full((b, k), NEG_INF, device=dev)
+    scores[:, 0] = 0.0
+    max_ts = torch.full((b, k), tb - 1, dtype=torch.long, device=dev)
+    # the finished set carries one spare slot, ``cap``: candidates that do
+    # not qualify are written there and the slot is dropped at the end (the
+    # JAX version's scatter with mode="drop")
+    fin_tokens = torch.full((b, cap + 1, max_new_tokens), eot, dtype=torch.long, device=dev)
+    fin_scores = torch.full((b, cap + 1), NEG_INF, device=dev)
+    fin_lengths = torch.zeros((b, cap + 1), dtype=torch.long, device=dev)
+    fin_count = torch.zeros(b, dtype=torch.long, device=dev)
+    rows_b = torch.arange(b, device=dev)
+    pos2k = torch.arange(2 * k, device=dev)[None, :]
+
+    def rows_of(x, idx):  # x (B, K', ...) gathered along the beam axis
+        return x.gather(1, idx.reshape(*idx.shape, *([1] * (x.dim() - 2))).expand(
+            -1, -1, *x.shape[2:]))
+
+    n_steps = 0
+    for step in range(max_new_tokens):
+        masked = apply_logit_rules(
+            logits, st, step=step, last_token=last.reshape(-1),
+            penultimate_token=penult.reshape(-1), max_ts_token=max_ts.reshape(-1),
+            suppress_mask=suppress_mask, use_timestamps=use_timestamps,
+            max_initial_timestamp_index=max_initial_ts_index,
+            space_blank_id=space_blank_id,
+        )
+        cand = scores[:, :, None] + torch.log_softmax(masked, dim=-1).reshape(b, k, v)
+        # top 2K: at most one EOT candidate per live beam, so this holds at
+        # least K non-EOT continuations and every EOT candidate that could
+        # outrank the K-th of them
+        top2, idx2 = _top_k_lower_index(cand.reshape(b, k * v), 2 * k)
+        tok2, src2 = idx2 % v, idx2 // v
+        is_eot2 = tok2 == eot
+
+        # live beams: the first K non-EOT candidates in score order
+        order = torch.argsort(torch.where(is_eot2, 2 * k + pos2k, pos2k), dim=-1)[:, :k]
+        next_tok = tok2.gather(1, order)
+        src_beam = src2.gather(1, order)
+        new_scores = top2.gather(1, order)
+
+        # finished set: EOT candidates ranked above the K-th non-EOT one
+        # take the next free slots; the source beam's buffer still holds EOT
+        # at ``step``, which is the terminator
+        not_eot = (~is_eot2).long()
+        qual = is_eot2 & (torch.cumsum(not_eot, dim=-1) - not_eot < k)
+        qual_l = qual.long()
+        slot = fin_count[:, None] + torch.cumsum(qual_l, dim=-1) - qual_l
+        take_it = qual & (slot < m_fin)
+        slot = torch.where(take_it, slot, cap)
+        fin_tokens.scatter_(1, slot[:, :, None].expand(-1, -1, max_new_tokens),
+                            rows_of(tokens, src2))
+        fin_scores.scatter_(1, slot, top2)
+        fin_lengths.scatter_(1, slot, torch.full_like(slot, step))
+        fin_count = torch.clamp(fin_count + take_it.sum(dim=-1), max=m_fin)
+
+        tokens = rows_of(tokens, src_beam)
+        tokens[:, :, step] = next_tok
+        penult = last.gather(1, src_beam)
+        max_ts = max_ts.gather(1, src_beam)
+        max_ts = torch.where(next_tok >= tb, torch.maximum(max_ts, next_tok), max_ts)
+        last = next_tok
+        scores = new_scores
+        n_steps = step + 1
+        if n_steps == max_new_tokens or bool((fin_count >= m_fin).all()):
+            break
+        # reorder the self cache to the new beams: only the positions
+        # written so far, in place (flat row = element * K + source beam)
+        row_idx = (rows_b[:, None] * k + src_beam).reshape(-1)
+        written = prompt_len + step
+        for c in (cache.self_k, cache.self_v):
+            c[:, :, :, :written] = c[:, row_idx, :, :written]
+        logits, cache = decoder_forward_cached(
+            params, cfg, next_tok.reshape(b * k, 1), cache, prompt_len + step, **row_kw,
+        )
+        logits = logits[:, -1]
+
+    # openai's finalize: elements short of K finished hypotheses are topped
+    # up from the live beams by raw score, with no EOT logprob added
+    live_order = torch.argsort(-scores, dim=-1, stable=True)
+    fill = fin_count[:, None] + torch.arange(k, device=dev)[None, :]
+    fill = torch.where(fill < k, fill, cap)
+    fin_tokens.scatter_(1, fill[:, :, None].expand(-1, -1, max_new_tokens),
+                        rows_of(tokens, live_order))
+    fin_scores.scatter_(1, fill, scores.gather(1, live_order))
+    fin_lengths.scatter_(1, fill, torch.full_like(fill, n_steps))
+    fin_tokens, fin_scores, fin_lengths = (
+        fin_tokens[:, :cap], fin_scores[:, :cap], fin_lengths[:, :cap]
+    )
+
+    # openai's MaximumLikelihoodRanker
+    lengths_f = torch.clamp(fin_lengths, min=1).float()
+    norm = lengths_f if length_penalty is None else ((5.0 + lengths_f) / 6.0) ** length_penalty
+    best = (fin_scores / norm).argmax(dim=-1)
+    return DecodeResult(
+        tokens=fin_tokens[rows_b, best],
+        lengths=fin_lengths[rows_b, best],
+        sum_logprob=fin_scores[rows_b, best],
+        no_speech_prob=no_speech_prob,
+    )
 
 
 # ---------------------------------------------------------------------------

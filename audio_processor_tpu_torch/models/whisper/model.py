@@ -9,8 +9,10 @@ the JAX tree; ``layer(blocks, l)`` takes views of one layer.
 
 Numerics mirror the JAX functions: layer norm with float32 statistics and
 population variance, linear layers as ``x @ W + b`` with ``W`` stored
-(d_in, d_out), exact GELU, attention scores softmaxed in float32, and the
-conv stem's bias added in the compute dtype.
+(d_in, d_out), exact GELU, attention scores softmaxed in float32 (the
+plain ``attention`` lives beside the encoder-attention kernel, in
+``ops/kernels/encoder_attention.py``), and the conv stem's bias added in
+the compute dtype.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.kernels.encoder_attention import attention_reference as attention
+from ...ops.kernels.encoder_attention import fused_self_attention
 from .config import WhisperConfig
 
 Params = dict[str, Any]
@@ -165,24 +169,14 @@ def merge_heads(x):
     return x.reshape(b, t, h * dh)
 
 
-def attention(q, k, v):
-    """softmax(q k^T / sqrt(dh)) v with (B,T,H,Dh) layouts, float32 softmax.
-
-    Plain matmuls, mirroring the JAX ``model.attention``; the encoder's
-    fused-attention kernel is later work.
-    """
-    dh = q.shape[-1]
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, T, Dh)
-    scores = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(dh))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(probs, vh).transpose(1, 2).to(q.dtype)
-
-
-def self_attention(p, x, n_head):
+def self_attention(p, x, n_head, fused=False):
+    """fused=True runs the encoder-attention kernel (the plain version on
+    CPU tensors); the default is the plain matmuls, as in JAX."""
     q = split_heads(linear(p["q"], x), n_head)
     k = split_heads(linear(p["k"], x), n_head)
     v = split_heads(linear(p["v"], x), n_head)
-    return linear(p["out"], merge_heads(attention(q, k, v)))
+    o = fused_self_attention(q, k, v) if fused else attention(q, k, v)
+    return linear(p["out"], merge_heads(o))
 
 
 def mlp(p, x):
@@ -206,8 +200,10 @@ def encode(
     mel: torch.Tensor,
     *,
     compute_dtype: torch.dtype = torch.float32,
+    fused_attn: bool = False,
 ) -> torch.Tensor:
-    """mel (B, n_mels, 3000) -> encoder states (B, 1500, d)."""
+    """mel (B, n_mels, 3000) -> encoder states (B, 1500, d).  fused_attn
+    runs self-attention through the encoder-attention kernel."""
     p = params["encoder"]
     x = mel.to(compute_dtype)  # (B, n_mels, T): conv1d's channel-first layout
     x = gelu(_conv1d(p["conv1"], x, stride=1))
@@ -215,6 +211,8 @@ def encode(
     x = x.transpose(1, 2) + p["pos_emb"].to(x.dtype)
     for l in range(cfg.n_audio_layer):
         bp = layer(p["blocks"], l)
-        x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_audio_head)
+        x = x + self_attention(
+            bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_audio_head, fused=fused_attn
+        )
         x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
     return layer_norm(p["ln_post"], x)

@@ -1,16 +1,27 @@
-"""Kernel B: int4 stacked decode cross-attention (CUDA C++,
-``csrc/cross_attn_int4.cu``), with the int4 cache format helpers.
+"""Decode cross-attention kernels over the quantized cross-KV cache (CUDA
+C++), with the int4 cache format helpers and each kernel's plain version.
 
-Replaces the TPU kernel ``cross_attention_int4_stacked``
-(``audio_processor_tpu/ops/pallas/decode_attention.py:411``).  The cache
-keeps the JAX package's byte layout so tests compare it exactly:
-offset-binary nibbles u = x + 8, time de-interleaved (low nibbles = even
-times, high nibbles = odd times), K as (L, B, H, Dh, Tpad/2) and V as
-(L, B, H, Tpad/2, Dh), Tpad a multiple of 128.
+* Kernel B, ``cross_attention_int4_stacked`` (``csrc/cross_attn_int4.cu``):
+  one layer of the stacked nibble-packed int4 cache.  Replaces the TPU
+  kernel ``cross_attention_int4_stacked``
+  (``audio_processor_tpu/ops/pallas/decode_attention.py:411``).
+* ``cross_attention_int4``: the same function on a single-layer cache
+  (B, H, Dh, Tpad/2), launched through kernel B's library.  Replaces the
+  TPU kernel ``cross_attention_int4`` (``decode_attention.py:277``).
+* ``cross_attention_int8`` (``csrc/cross_attn_int8.cu``): one layer of the
+  int8 kernel-layout cache, K (B, H, Dh, Tpad) and V (B, H, Tpad, Dh).
+  Replaces the TPU kernel ``cross_attention_int8``
+  (``decode_attention.py:83``).
 
-``cross_attention_int4_stacked`` launches the kernel on CUDA tensors and
-runs the plain PyTorch version (``cross_attention_int4_reference``) on CPU
-tensors.  Bound and design: see the source.
+The int4 cache keeps the JAX package's byte layout so tests compare it
+exactly: offset-binary nibbles u = x + 8, time de-interleaved (low nibbles
+= even times, high nibbles = odd times), K as (L, B, H, Dh, Tpad/2) and V
+as (L, B, H, Tpad/2, Dh), Tpad a multiple of 128.
+
+Each wrapper launches its kernel on CUDA tensors and runs the plain
+PyTorch version (``*_reference``) on CPU tensors; q carries K's dequant
+scale and the result is in integer units (the caller applies V's scale).
+Bound and design: see the sources.
 """
 from __future__ import annotations
 
@@ -53,6 +64,20 @@ def _deinterleaved_valid_mask(tq: int, tpad: int, valid_len: int, device) -> tor
     return (orig < valid_len)[None, :].expand(tq, tpad)
 
 
+def cross_attention_int8_reference(
+    q: torch.Tensor, k8t: torch.Tensor, v8: torch.Tensor, *, valid_len: int
+) -> torch.Tensor:
+    """Plain version on one layer: q (B, Tq, H, Dh) (K scale folded in),
+    k8t (B, H, Dh, Tpad), v8 (B, H, Tpad, Dh) int8 -> (B, Tq, H, Dh) float32
+    in integer units; positions >= valid_len are masked to -1e30."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhd,bhdt->bhqt", q.float(), k8t.float()) / math.sqrt(dh)
+    valid = torch.arange(k8t.shape[3], device=q.device) < valid_len
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqt,bhtd->bqhd", probs, v8.float())
+
+
 def cross_attention_int4_reference(
     q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, *, valid_len: int
 ) -> torch.Tensor:
@@ -75,6 +100,18 @@ def cross_attention_int4_reference(
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
+
+def _check_q(q: torch.Tensor, name: str) -> None:
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous float32")
+
+
+def _check_cache(name: str, t: torch.Tensor, device, shape: tuple) -> None:
+    if t.device != device or t.dtype != torch.int8 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int8 tensor on {device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
@@ -114,16 +151,9 @@ def cross_attention_int4_stacked(
         raise ValueError(f"cross_attention_int4_stacked: unsupported device {q.device}")
     b, tq, h, dh = q.shape
     n_layers, half = k4_all.shape[0], k4_all.shape[4]
-    if q.dtype != torch.float32 or not q.is_contiguous():
-        raise ValueError("q must be contiguous float32")
-    for name, t, shape in (
-        ("k4_all", k4_all, (n_layers, b, h, dh, half)),
-        ("v4_all", v4_all, (n_layers, b, h, half, dh)),
-    ):
-        if t.device != q.device or t.dtype != torch.int8 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int8 tensor on {q.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    _check_q(q, "cross_attention_int4_stacked")
+    _check_cache("k4_all", k4_all, q.device, (n_layers, b, h, dh, half))
+    _check_cache("v4_all", v4_all, q.device, (n_layers, b, h, half, dh))
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range for {n_layers} layers")
     if dh % 4 or half % 4:
@@ -148,3 +178,93 @@ def cross_attention_int4_stacked(
 
 
 cross_attention_int4_stacked.launches = 0
+
+
+def cross_attention_int4(
+    q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, *, valid_len: int
+) -> torch.Tensor:
+    """Kernel B's function on a single-layer packed cache: q (B, Tq, H, Dh)
+    float32 (K scale folded in), k4 (B, H, Dh, Tpad/2), v4 (B, H, Tpad/2, Dh)
+    int8 -> (B, Tq, H, Dh) float32 in integer units.
+
+    CUDA tensors: kernel B's library on the one layer, or an error.  CPU
+    tensors: the plain version.
+    """
+    if q.device.type == "cpu":
+        return cross_attention_int4_reference(q, k4, v4, valid_len=valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"cross_attention_int4: unsupported device {q.device}")
+    _check_q(q, "cross_attention_int4")
+    b, tq, h, dh = q.shape
+    half = k4.shape[-1]
+    _check_cache("k4", k4, q.device, (b, h, dh, half))
+    _check_cache("v4", v4, q.device, (b, h, half, dh))
+    if dh % 4 or half % 4:
+        raise ValueError(f"kernel needs Dh and Tpad/2 divisible by 4 (Dh={dh}, Tpad/2={half})")
+    if not 1 <= valid_len <= 2 * half:
+        raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
+    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _library().cross_attn_int4_launch(
+        q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), b, tq, h, dh, half,
+        valid_len, 1.0 / math.sqrt(dh), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"cross_attn_int4 kernel launch failed: CUDA error {rc}")
+    cross_attention_int4.launches += 1
+    return out
+
+
+cross_attention_int4.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _library_int8() -> ctypes.CDLL:
+    lib = build.load("cross_attn_int8")
+    fn = lib.cross_attn_int8_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def cross_attention_int8(
+    q: torch.Tensor, k8t: torch.Tensor, v8: torch.Tensor, *, valid_len: int
+) -> torch.Tensor:
+    """Decode cross-attention of q (B, Tq, H, Dh) float32 (K scale folded
+    in) against one layer of the int8 kernel-layout cache, k8t
+    (B, H, Dh, Tpad) and v8 (B, H, Tpad, Dh).  Returns (B, Tq, H, Dh)
+    float32 in integer units.
+
+    CUDA tensors: the kernel, or an error; the decoder passes the layer's
+    view ``cache.cross_k[l]`` in place.  CPU tensors: the plain version.
+    """
+    if q.device.type == "cpu":
+        return cross_attention_int8_reference(q, k8t, v8, valid_len=valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"cross_attention_int8: unsupported device {q.device}")
+    _check_q(q, "cross_attention_int8")
+    b, tq, h, dh = q.shape
+    tpad = k8t.shape[-1]
+    _check_cache("k8t", k8t, q.device, (b, h, dh, tpad))
+    _check_cache("v8", v8, q.device, (b, h, tpad, dh))
+    if dh % 4 or tpad % 4 or dh > 1024:
+        raise ValueError(f"kernel needs Dh and Tpad divisible by 4, Dh <= 1024 (Dh={dh}, Tpad={tpad})")
+    if not 1 <= valid_len <= tpad:
+        raise ValueError(f"valid_len {valid_len} outside [1, {tpad}]")
+    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _library_int8().cross_attn_int8_launch(
+        q.data_ptr(), k8t.data_ptr(), v8.data_ptr(), out.data_ptr(), b, tq, h, dh, tpad,
+        valid_len, 1.0 / math.sqrt(dh), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"cross_attn_int8 kernel launch failed: CUDA error {rc}")
+    cross_attention_int8.launches += 1
+    return out
+
+
+cross_attention_int8.launches = 0

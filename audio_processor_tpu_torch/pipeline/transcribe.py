@@ -1,10 +1,13 @@
 """End-to-end transcription: audio -> timestamped segments, in PyTorch.
 
-The port of the JAX package's ``pipeline/transcribe.py`` on its default
-path: the recording is cut into 30 s windows that run through the fused
-log-mel kernel, the encoder and the int4 cross-KV greedy decode in slabs
-of windows, followed by openai-whisper's quality-retry ladder, no-speech
-gate, seek repair and segment assembly.  Option defaults are the JAX
+The port of the JAX package's ``pipeline/transcribe.py``: the recording
+is cut into 30 s windows that run through the fused log-mel kernel, the
+encoder (optionally through the encoder-attention kernel) and the decode
+in slabs of windows, followed by openai-whisper's quality-retry ladder,
+no-speech gate, seek repair and segment assembly.  The decode is greedy
+over the int4 cross-KV cache by default, or beam search, prompted by
+``initial_prompt``, continued from a ``prefix``, or conditioned on the
+previous windows' text in window groups.  Option defaults are the JAX
 package's.  Options that belong to later slices of the port raise
 NotImplementedError at construction.
 
@@ -50,16 +53,10 @@ DEFAULT_TEMPERATURE_LADDER = (0.2, 0.4, 0.6, 0.8, 1.0)
 # options of the JAX Transcriber that later slices of the port bring:
 # name -> the value that means "off"
 _LATER_SLICE_OPTIONS = {
-    "beam_size": 0,
-    "condition_on_previous_text": False,
     "word_timestamps": False,
     "hallucination_silence_threshold": None,
-    "initial_prompt": None,
-    "prefix": None,
-    "carry_initial_prompt": False,
     "mesh": None,
     "quantize_self_kv": False,
-    "use_pallas_encoder_attn": False,
 }
 
 
@@ -96,10 +93,19 @@ class Transcriber:
     max_new_tokens: int = 224
     device: Any = None
     quantize_cross_kv: bool = True
-    # nibble-packed int4 cross-KV read by the CUDA decode kernel
+    # 4: nibble-packed int4 cross-KV read by the CUDA decode kernel; 8:
+    # the plain int8 cache (no kernel), as in the JAX package
     cross_kv_bits: int = 4
     # sampling candidates per window on T>0 decodes (openai's best_of)
     best_of: int = 5
+    # 0 = greedy; > 0 = beam search at T=0, sampling retries at T>0
+    beam_size: int = 0
+    # openai's beam patience: collect round(beam_size * patience) finished
+    # hypotheses before stopping
+    patience: float = 1.0
+    # beam ranking: None = average logprob (openai's default), a float =
+    # the Google-NMT ((5 + len) / 6) ** length_penalty form
+    length_penalty: float | None = None
     # base decode temperature; > 0 samples from the start, no retries
     temperature: float = 0.0
     temperature_ladder: tuple[float, ...] | None = None
@@ -116,17 +122,29 @@ class Transcriber:
     seek_repair: bool = True
     without_timestamps: bool = False
     max_initial_timestamp: float | None = 1.0
-    # later-slice options (must stay at their "off" value here)
-    beam_size: int = 0
+    # encoder self-attention through the encoder-attention CUDA kernel
+    use_pallas_encoder_attn: bool = False
+    # openai's initial_prompt: <|startofprev|> context for the first window
+    # (kept through its retries); with condition_on_previous_text it seeds
+    # the first group's rolling context
+    initial_prompt: str | None = None
+    # openai's carry_initial_prompt: the initial prompt prefixes EVERY
+    # window's context, the rolling history trimmed to what still fits
+    carry_initial_prompt: bool = False
+    # openai's DecodingOptions.prefix: text after the sot sequence that the
+    # decode continues from; it never reaches the output
+    prefix: str | None = None
+    # openai's condition_on_previous_text in window groups: each window is
+    # prompted with the text of the earlier windows of its group of
+    # condition_group_size consecutive windows; groups decode in parallel
     condition_on_previous_text: bool = False
+    condition_group_size: int = 8
+    condition_ctx_tokens: int = 48
+    # later-slice options (must stay at their "off" value here)
     word_timestamps: bool = False
     hallucination_silence_threshold: float | None = None
-    initial_prompt: str | None = None
-    prefix: str | None = None
-    carry_initial_prompt: bool = False
     mesh: Any = None
     quantize_self_kv: bool = False
-    use_pallas_encoder_attn: bool = False
 
     def __post_init__(self):
         for name, off in _LATER_SLICE_OPTIONS.items():
@@ -135,10 +153,6 @@ class Transcriber:
                     f"Transcriber option {name}={getattr(self, name)!r} is not "
                     "ported to the PyTorch package yet"
                 )
-        if self.cross_kv_bits != 4:
-            raise NotImplementedError(
-                "cross_kv_bits=8 (the int8 decode kernel) is not ported yet"
-            )
         if self.task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe|translate, got {self.task!r}")
         if self.temperature < 0:
@@ -196,6 +210,50 @@ class Transcriber:
         self._space_blank_id = decode_lib.space_blank_token_id(
             self.tokenizer, self.special
         )
+        self._prefix_tokens = self._encode_prefix()
+        self._initial_prompt_tokens = self._encode_initial_prompt()
+
+    def _encode_prefix(self) -> list[int]:
+        """DecodingOptions.prefix as token ids, capped at openai's
+        max_prefix_len = n_text_ctx // 2 - max_new_tokens (a non-positive cap
+        keeps everything: openai's ``[-0:]``), and so that the prefill and the
+        decode fit n_text_ctx."""
+        if not self.prefix:
+            return []
+        toks = [
+            int(t) for t in self.tokenizer.encode(" " + self.prefix.strip())
+            if int(t) < self.special.eot
+        ]
+        max_prefix_len = self.cfg.n_text_ctx // 2 - self.max_new_tokens
+        if max_prefix_len > 0:
+            toks = toks[-max_prefix_len:]
+        sot_len = len(self.special.sot_sequence(language=0))
+        hard = self.cfg.n_text_ctx - self.max_new_tokens - sot_len - 1
+        if hard <= 0:
+            raise ValueError(
+                f"max_new_tokens={self.max_new_tokens} leaves no room for a "
+                f"prefix within n_text_ctx={self.cfg.n_text_ctx}"
+            )
+        return toks[-hard:]
+
+    def _encode_initial_prompt(self) -> list[int]:
+        """initial_prompt as token ids: openai prepends a space and keeps the
+        last n_text_ctx // 2 - 1; capped further so that prompt, sot
+        sequence, prefix and max_new_tokens fit n_text_ctx."""
+        if not self.initial_prompt:
+            return []
+        toks = self.tokenizer.encode(" " + self.initial_prompt.strip())
+        sot_len = len(self.special.sot_sequence(language=0)) + len(self._prefix_tokens)
+        cap = min(
+            self.cfg.n_text_ctx // 2 - 1,
+            self.cfg.n_text_ctx - self.max_new_tokens - sot_len - 1,
+        )
+        if cap <= 0:
+            raise ValueError(
+                f"max_new_tokens={self.max_new_tokens} leaves no room for an "
+                f"initial_prompt within n_text_ctx={self.cfg.n_text_ctx}"
+            )
+        return [int(t) for t in toks if int(t) < self.special.eot][-cap:]
 
     # -- factories -------------------------------------------------------------
 
@@ -256,12 +314,15 @@ class Transcriber:
         return max(1, self.max_chunk_batch // max(1, self.best_of))
 
     def _sot_seq(self, lang: int | None) -> tuple[int, ...]:
+        """The prefill sequence: sot tokens + the prefix tokens (openai's
+        layout: sampling begins past the prefix, so it never reaches the
+        output; prompt rows put <|startofprev|> + prompt before it)."""
         return tuple(
             self.special.sot_sequence(
                 language=lang, task=self.task,
                 timestamps=not self.without_timestamps,
             )
-        )
+        ) + tuple(self._prefix_tokens)
 
     @property
     def _active_language(self) -> int | None:
@@ -273,11 +334,13 @@ class Transcriber:
 
     def _frontend_encode(self, chunks_i16: torch.Tensor) -> torch.Tensor:
         """int16 (B, 480000) on the device -> encoder states (B, 1500, d).
-        The log-mel is the fused CUDA kernel on the card."""
+        The log-mel is the fused CUDA kernel on the card, and so is encoder
+        self-attention with use_pallas_encoder_attn."""
         audio = chunks_i16.float() / 32768.0
         mel = log_mel(audio, n_mels=self.cfg.n_mels)
         return model_lib.encode(
-            self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype)
+            self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype),
+            fused_attn=self.use_pallas_encoder_attn,
         )
 
     def _chunk_slab(self, audio: np.ndarray, chunk_ids: list[int], bucket: int) -> torch.Tensor:
@@ -304,15 +367,9 @@ class Transcriber:
 
     # -- decode and quality gates -----------------------------------------------
 
-    def _run_decode(self, audio_states, temperature: float | None = None, seed: int = 0):
-        if temperature is None:
-            temperature = self.temperature
-        lang = self._active_language if self._active_language is not None else self.language
-        return decode_lib.greedy_decode(
-            self.params,
-            self.cfg,
-            audio_states,
-            sot_sequence=self._sot_seq(lang),
+    def _decode_kw(self) -> dict:
+        """Options every decode of this Transcriber shares."""
+        return dict(
             max_new_tokens=self.max_new_tokens,
             use_timestamps=not self.without_timestamps,
             max_initial_ts_index=self._max_initial_ts_index,
@@ -321,9 +378,65 @@ class Transcriber:
             dtype_name=self.compute_dtype,
             quantize_cross_kv=self.quantize_cross_kv,
             kv_bits=self.cross_kv_bits,
-            temperature=temperature,
-            rng_seed=seed,
-            best_of=self.best_of,
+        )
+
+    def _beam_decode(self, audio_states, sot_seq, rows=None, lens=None):
+        """One beam_decode call (plain, initial_prompt and conditioned
+        decodes share it)."""
+        return decode_lib.beam_decode(
+            self.params, self.cfg, audio_states, sot_sequence=sot_seq,
+            beam_size=self.beam_size, patience=self.patience,
+            length_penalty=self.length_penalty, prompt_tokens=rows, prompt_lens=lens,
+            **self._decode_kw(),
+        )
+
+    def _prompted_decode(self, audio_states, sot_seq, rows, lens, temperature, seed):
+        """Prompt rows (build_prompt_rows) decoded by beam search at T=0
+        with beam_size > 0, else by prompted greedy/sampling decode."""
+        if self.beam_size > 0 and temperature == 0:
+            return self._beam_decode(audio_states, sot_seq, rows, lens)
+        return decode_lib.prompted_greedy_decode(
+            self.params, self.cfg, audio_states, rows, lens, sot_len=len(sot_seq),
+            temperature=temperature, rng_seed=seed, best_of=self.best_of,
+            **self._decode_kw(),
+        )
+
+    def _carry_hists(self, hists: list[list[int]]) -> list[list[int]]:
+        """carry_initial_prompt under conditioning: prepend the initial
+        prompt to each row's rolling context, trimming the context tail to
+        what fits in condition_ctx_tokens (openai clips all_tokens the same
+        way against n_text_ctx // 2 - 1)."""
+        ipt = self._initial_prompt_tokens
+        if not (self.carry_initial_prompt and ipt):
+            return hists
+        budget = max(0, self.condition_ctx_tokens - len(ipt))
+        return [ipt + (h[-budget:] if budget else []) for h in hists]
+
+    def _run_decode(
+        self, audio_states, temperature: float | None = None, seed: int = 0,
+        first_row_prompt: bool = False,
+    ):
+        """One slab's decode.  first_row_prompt: row 0 holds the recording's
+        first window, which the initial_prompt prompts; with
+        carry_initial_prompt every row is prompted.  Unprompted rows decode
+        exactly as plain greedy decode.  temperature=None means the base
+        temperature."""
+        if temperature is None:
+            temperature = self.temperature
+        lang = self._active_language if self._active_language is not None else self.language
+        sot_seq = self._sot_seq(lang)
+        ipt = self._initial_prompt_tokens
+        if ipt and (first_row_prompt or self.carry_initial_prompt):
+            b = audio_states.shape[0]
+            per_row = [ipt] * b if self.carry_initial_prompt else [ipt] + [[]] * (b - 1)
+            rows, lens = decode_lib.build_prompt_rows(per_row, sot_seq, self.special, len(ipt))
+            return self._prompted_decode(audio_states, sot_seq, rows, lens, temperature, seed)
+        if self.beam_size > 0 and temperature == 0:
+            return self._beam_decode(audio_states, sot_seq)
+        return decode_lib.greedy_decode(
+            self.params, self.cfg, audio_states, sot_sequence=sot_seq,
+            temperature=temperature, rng_seed=seed, best_of=self.best_of,
+            **self._decode_kw(),
         )
 
     def _failed_rows(self, result, tokens: np.ndarray, n_real: int) -> np.ndarray:
@@ -364,7 +477,9 @@ class Transcriber:
         raw = self.tokenizer.decode(text_toks).encode("utf-8")
         return round(len(raw) / max(len(zlib.compress(raw)), 1), 4) if raw else 0.0
 
-    def _collect_slab(self, result, audio_states, n_real: int) -> tuple[np.ndarray, dict]:
+    def _collect_slab(
+        self, result, audio_states, n_real: int, first_slab: bool = False
+    ) -> tuple[np.ndarray, dict]:
         """One slab's decode to host, through the retry ladder and the
         no-speech gate.  Returns (tokens, per-window meta)."""
         tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
@@ -377,7 +492,18 @@ class Transcriber:
             "temperature": np.full(n_real, self.temperature, np.float64),
         }
         if self.enable_fallback:
-            self._quality_retry(result, tokens, n_real, audio_states, meta)
+            # the initial prompt stays through the first window's retries
+            # (openai's decode_with_fallback); the retry rows are in
+            # ascending order, so that window is row 0 of the first batch
+            def redecode(sub_states, part, temp, lo):
+                return self._run_decode(
+                    sub_states, temp, seed=int(temp * 10),
+                    first_row_prompt=bool(first_slab and lo == 0 and part[0] == 0),
+                )
+
+            self._quality_retry(
+                result, tokens, n_real, audio_states, meta, redecode, "quality fallback"
+            )
         # no-speech gate on the ACCEPTING decode's stats
         if self.no_speech_threshold is not None:
             silent = self._silent_rows(meta["no_speech_prob"], meta["avg_logprob"])
@@ -387,10 +513,13 @@ class Transcriber:
         )
         return tokens, meta
 
-    def _quality_retry(self, result, tokens, n_real, states, meta) -> None:
+    def _quality_retry(self, result, tokens, n_real, states, meta, redecode, label) -> None:
         """Compacted temperature-ladder retries (openai's
-        decode_with_fallback): only the failed rows re-decode, padded to a
-        power-of-two bucket; ``tokens`` and ``meta`` update in place."""
+        decode_with_fallback), the one loop of the plain and the conditioned
+        paths: only the failed rows re-decode, padded to a power-of-two
+        bucket, through ``redecode(sub_states, part, temp, lo)``; ``tokens``
+        and ``meta`` update in place.  Beam rows retry by sampling, as
+        openai's ladder does."""
         failed = self._failed_rows(result, tokens, n_real)
         for temp in self._ladder:
             if not failed.any():
@@ -398,8 +527,7 @@ class Transcriber:
             idx = np.flatnonzero(failed)
             retry_cap = self._retry_cap
             logger.info(
-                "quality fallback: %d/%d chunks re-decoding at T=%.1f",
-                len(idx), n_real, temp,
+                "%s: %d/%d chunks re-decoding at T=%.1f", label, len(idx), n_real, temp,
             )
             failed[:] = False
             for lo in range(0, len(idx), retry_cap):
@@ -408,7 +536,7 @@ class Transcriber:
                 pad_idx = np.zeros(bucket, np.int64)
                 pad_idx[: len(part)] = part
                 sub_states = states[torch.from_numpy(pad_idx).to(states.device)]
-                retry = self._run_decode(sub_states, temp, seed=int(temp * 10))
+                retry = redecode(sub_states, part, temp, lo)
                 retry_tokens = retry.tokens.cpu().numpy()[: len(part)].astype(np.int32)
                 tokens[part] = retry_tokens
                 r_len = retry.lengths.cpu().numpy()[: len(part)]
@@ -543,6 +671,104 @@ class Transcriber:
         langs = WHISPER_LANGUAGES_V3 if self.special.num_languages >= 100 else WHISPER_LANGUAGES
         return langs[lang] if 0 <= lang < len(langs) else None
 
+    # -- conditioned (window-group) decoding --------------------------------------
+
+    def _transcribe_conditioned(
+        self, audio: np.ndarray, n_chunks: int, progress=None, on_segment=None,
+        time_map=None,
+    ) -> tuple[np.ndarray, dict]:
+        """Window-group conditioned decode (condition_on_previous_text).
+
+        Round r decodes window r of EVERY group of condition_group_size
+        consecutive windows in one batch, each prompted with <|startofprev|>
+        + its group's text so far (openai's prompt).  It composes with beam
+        search and with the retry ladder, whose rungs keep the prompt up to
+        T=0.5 and drop it above (openai's prompt_reset_on_temperature).
+        Returns (tokens (n_chunks, max_new_tokens), per-window meta)."""
+        g_size = max(1, self.condition_group_size)
+        n_groups = math.ceil(n_chunks / g_size)
+        token_rows = np.full((n_chunks, self.max_new_tokens), self.special.eot, np.int32)
+        chunk_meta = {
+            "avg_logprob": np.zeros(n_chunks, np.float64),
+            "no_speech_prob": np.zeros(n_chunks, np.float64),
+            "compression_ratio": np.zeros(n_chunks, np.float64),
+            "temperature": np.full(n_chunks, self.temperature, np.float64),
+        }
+        histories: list[list[int]] = [[] for _ in range(n_groups)]
+        # the initial prompt seeds the first group's rolling context (openai
+        # keeps it in all_tokens), except under carry_initial_prompt, where
+        # _carry_hists prepends it to every prompt instead
+        if not self.carry_initial_prompt:
+            histories[0] = list(self._initial_prompt_tokens)
+        max_ctx = self.condition_ctx_tokens
+        if self.carry_initial_prompt:
+            max_ctx = max(max_ctx, len(self._initial_prompt_tokens))
+
+        for r in range(g_size):
+            chunk_ids = [g * g_size + r for g in range(n_groups) if g * g_size + r < n_chunks]
+            if not chunk_ids:
+                break
+            bucket = min(_bucket(len(chunk_ids)), self._slab_cap)
+            for lo in range(0, len(chunk_ids), bucket):
+                ids = chunk_ids[lo : lo + bucket]
+                states = self._frontend_encode(self._chunk_slab(audio, ids, bucket))
+                if (
+                    r == 0 and lo == 0 and self.auto_language and self.language is None
+                    and self.cfg.is_multilingual
+                ):
+                    self._active_language = self._detect_language_voting(audio, states, ids)
+                lang = self._active_language if self._active_language is not None else self.language
+                sot_seq = self._sot_seq(lang)
+                hists = [histories[ci // g_size] for ci in ids]
+
+                def run_prompted(sub_states, sub_hists, temp, seed):
+                    n_pad = sub_states.shape[0] - len(sub_hists)
+                    rows, lens = decode_lib.build_prompt_rows(
+                        self._carry_hists(sub_hists) + [[]] * n_pad, sot_seq,
+                        self.special, max_ctx,
+                    )
+                    return self._prompted_decode(sub_states, sot_seq, rows, lens, temp, seed)
+
+                base_hists = hists if self.temperature <= 0.5 else [[] for _ in hists]
+                result = run_prompted(states, base_hists, self.temperature, 0)
+                n_real = len(ids)
+                tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
+                lengths = result.lengths.cpu().numpy()[:n_real]
+                meta = {
+                    "avg_logprob": result.sum_logprob.cpu().numpy()[:n_real] / (lengths + 1),
+                    "no_speech_prob": result.no_speech_prob.cpu().numpy()[:n_real]
+                    .astype(np.float64),
+                    "temperature": np.full(n_real, self.temperature, np.float64),
+                }
+                if self.enable_fallback:
+                    def redecode(sub_states, part, temp, lo2):
+                        sub_hists = [hists[i] if temp <= 0.5 else [] for i in part]
+                        return run_prompted(sub_states, sub_hists, temp, int(temp * 10))
+
+                    self._quality_retry(
+                        result, tokens, n_real, states, meta, redecode,
+                        "conditioned fallback",
+                    )
+                if self.no_speech_threshold is not None:
+                    silent = self._silent_rows(meta["no_speech_prob"], meta["avg_logprob"])
+                    tokens[silent] = self.special.eot
+                for j, ci in enumerate(ids):
+                    token_rows[ci] = tokens[j]
+                    for key in ("avg_logprob", "no_speech_prob", "temperature"):
+                        chunk_meta[key][ci] = meta[key][j]
+                    chunk_meta["compression_ratio"][ci] = self._row_compression_ratio(tokens[j])
+                    histories[ci // g_size].extend(
+                        int(t) for t in tokens[j] if int(t) < self.special.eot
+                    )
+                if on_segment is not None:
+                    self._emit_live_segments(
+                        on_segment, tokens, np.asarray(ids, np.float64),
+                        len(audio) / 16_000.0, time_map,
+                    )
+            if progress:
+                progress(0.1 + 0.8 * (r + 1) / g_size)
+        return token_rows, chunk_meta
+
     # -- main entry --------------------------------------------------------------
 
     def _emit_live_segments(self, on_segment, token_rows, window_idx, content_s, time_map) -> None:
@@ -618,6 +844,15 @@ class Transcriber:
                 time_map = TimeMap.identity(duration_s)
 
         n_chunks = max(1, math.ceil(len(audio) / CHUNK_SAMPLES))
+        if self.condition_on_previous_text:
+            tokens, chunk_meta = self._transcribe_conditioned(
+                audio, n_chunks, progress, on_segment=on_segment, time_map=time_map,
+            )
+            tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
+            return self._finalize(
+                tokens, n_chunks, duration_s, time_map, t0, progress,
+                audio=audio, patches=patches, chunk_meta=chunk_meta,
+            )
         slab = min(_bucket(n_chunks), self._slab_cap)
         n_slabs = math.ceil(n_chunks / slab)
         content_s = len(audio) / 16_000.0
@@ -638,7 +873,10 @@ class Transcriber:
                 self._active_language = self._detect_language_voting(
                     audio, audio_states, list(range(real))
                 )
-            toks, meta = self._collect_slab(self._run_decode(audio_states), audio_states, real)
+            toks, meta = self._collect_slab(
+                self._run_decode(audio_states, first_row_prompt=si == 0), audio_states, real,
+                first_slab=si == 0,
+            )
             del audio_states
             token_rows.append(toks)
             meta_rows.append(meta)

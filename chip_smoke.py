@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main path's shapes and
-times it, drives ``Transcriber.transcribe`` at whisper-small width with
-random weights, and runs the bench workload (log-mel + encode + 96-token
-int4 greedy decode, bf16, EOT suppressed) at batch 32 and at the default
-slab of 128.  Prints one JSON line
-per phase, the kernel table, the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
-when there is no card, when the port is not beside this script, or when
-any phase fails.
+Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc`` (one
+nvcc per source, all at once), holds each against its plain PyTorch version
+at the main path's shapes and times it, checks the whole chain card vs CPU
+on a small config (greedy, int8-kernel greedy, beam, prompted, fused
+encoder), drives ``Transcriber.transcribe`` at whisper-small width with
+random weights on its default path and with openai-whisper's CLI defaults
+(beam 5, conditioned on the previous text, an initial prompt carried to
+every window) through the fused encoder, and runs the bench workload
+(log-mel + encode + 96-token decode, bf16, EOT suppressed) in its
+variants: int4 greedy at batch 32 and at the default slab of 128, the
+fused encoder at 128, the int8 kernel decode at 32 and beam 5 at 32.
+Prints one JSON line per phase, the kernel table, the card's name and
+power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+with no result line, when there is no card, when the port is not beside
+this script, or when any phase fails.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 
 
 def emit(obj: dict) -> None:
@@ -96,9 +102,9 @@ def device_ms(fn, iters: int) -> float | str:
     return sum(r[0] for r in rows) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,6 +185,16 @@ def phase_log_mel(dev, kernels) -> dict:
     return out
 
 
+def _sdpa_on_dequantized(q, k_t, v_t):
+    """SDPA on K/V in time order (valid positions) as bf16: the yardstick
+    of the decode kernels; q (B, Tq, H, Dh), k_t (B, H, Dh, T), v_t (B, H, T, Dh)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k_bf = k_t.transpose(-1, -2).to(torch.bfloat16).contiguous()
+    v_bf = v_t.to(torch.bfloat16).contiguous()
+    q_bf = q.transpose(1, 2).to(torch.bfloat16)
+    return lambda: sdpa(q_bf, k_bf, v_bf)
+
+
 def phase_cross_attn(dev, kernels) -> dict:
     from audio_processor_tpu_torch.ops.kernels import decode_attention as da
 
@@ -222,13 +238,10 @@ def phase_cross_attn(dev, kernels) -> dict:
     k_t = torch.stack([lo, hi], dim=-1).reshape(b, h, dh, tpad)[..., :valid] - 8
     lo, hi = da._unpack_nibbles_u(v4[0])
     v_t = torch.stack([lo, hi], dim=-2).reshape(b, h, tpad, dh)[:, :, :valid] - 8
-    k_bf = k_t.transpose(-1, -2).to(torch.bfloat16).contiguous()
-    v_bf = v_t.to(torch.bfloat16).contiguous()
-    q_bf = q.transpose(1, 2).to(torch.bfloat16)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = (sdpa(q_bf, k_bf, v_bf).float().transpose(1, 2)
+    library = _sdpa_on_dequantized(q, k_t, v_t)
+    lib_err = (library().float().transpose(1, 2)
                - da.cross_attention_int4_reference(q, k4[0], v4[0], valid_len=valid)).abs().max().item()
-    lib = time_ms(lambda: sdpa(q_bf, k_bf, v_bf), iters=20)
+    lib = time_ms(library, iters=20)
 
     def needed(rows):  # bytes (valid K/V nibbles, q in, out) and FLOPs of one call
         return (2 * rows * h * dh * math.ceil(valid / 2) + 2 * 4 * rows * h * dh,
@@ -261,37 +274,223 @@ def phase_cross_attn(dev, kernels) -> dict:
     return out
 
 
+def phase_encoder_attn(dev, kernels) -> dict:
+    """Kernel #6 against its plain version at B=8 (bf16 and f32), timed at
+    the default slab's B=128 in bf16 with SDPA on the same tensors as the
+    yardstick."""
+    from audio_processor_tpu_torch.ops.kernels import encoder_attention as ea
+
+    t, h, dh = 1500, 12, 64
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = {"phase": "encoder_attn", "shape": [t, h, dh]}
+
+    def qkv(b, dtype):  # split-heads views of one projection, as in the encoder
+        x = torch.randn(b, t, 3 * h * dh, device=dev, generator=g).to(dtype)
+        return [y.reshape(b, t, h, dh) for y in x.split(h * dh, dim=-1)]
+
+    # both sides keep the scores in f32 and round the normalised P to bf16:
+    # bf16 outputs (|x| up to ~0.3) differ by an output ulp or two
+    for dtype, tol in ((torch.bfloat16, 4e-3), (torch.float32, 1e-4)):
+        q, k, v = qkv(8, dtype)
+        got = ea.fused_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - ea.attention_reference(q, k, v).float()).abs().max().item()
+        name = str(dtype).split(".")[-1]
+        if not err <= tol:
+            fail(f"encoder_attn {name} B=8: max abs err {err} > {tol}")
+        out[f"max_abs_err_{name}_b8"] = err
+    del q, k, v, got
+
+    b = 128
+    q, k, v = qkv(b, torch.bfloat16)
+    ms = time_ms(lambda: ea.fused_self_attention(q, k, v), iters=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = time_ms(lambda: ea.attention_reference(q, k, v), iters=2, warmup=1)
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: sdpa(qh, kh, vh), iters=5)
+    nbytes = 4 * b * t * h * dh * 2  # q, k, v in and out, bf16
+    bms, by = bound_ms(nbytes, 4 * b * h * t * t * dh, PEAK_BF16_FLOPS)
+    out.update(kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+               plain_peak_mem_gb=plain_peak_gb, timed="bf16, B=128, one layer per call",
+               bound_share=bms / ms)
+    kernels["encoder_attn"] = dict(
+        name="encoder_attn", route="cuda", source="audio_processor_tpu_torch/csrc/encoder_attn.cu",
+        replaces="audio_processor_tpu/ops/pallas/encoder_attention.py:80",
+        max_abs_err=out["max_abs_err_bfloat16_b8"], max_abs_err_f32=out["max_abs_err_float32_b8"],
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=f"q, k, v ({b}, {t}, {h}, {dh}) bf16 -> ({b}, {t}, {h}, {dh}) bf16",
+    )
+    return out
+
+
+def phase_cross_attn_int8(dev, kernels) -> dict:
+    """Kernel #3 on whisper-small's int8 kernel-layout cache at B=128:
+    layers 0 and 11, Tq 1 and 4, then timed one layer per call; and B=8."""
+    from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+
+    n_layers, b, h, dh, tpad, valid = 12, 128, 12, 64, 1536, 1500
+    g = torch.Generator(device=dev).manual_seed(7)
+    k8 = torch.randint(-127, 128, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (n_layers, b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    k8[..., valid:] = 0  # init_cache zero-pads past Ta
+    v8[:, :, :, valid:] = 0
+    out = {"phase": "cross_attn_int8", "shape": [n_layers, b, h, dh, tpad], "valid_len": valid}
+    worst = 0.0
+    for tq in (1, 4):
+        q = torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.02
+        for l in (0, n_layers - 1):
+            got = da.cross_attention_int8(q, k8[l], v8[l], valid_len=valid)
+            torch.cuda.synchronize()
+            err = (got - da.cross_attention_int8_reference(q, k8[l], v8[l], valid_len=valid)).abs().max().item()
+            # integer-unit outputs (|x| <= 127), f32 sums over 1500 keys in
+            # another order than the plain version's
+            if not err <= 1e-3:
+                fail(f"cross_attn_int8 tq={tq} layer={l}: max abs err {err} > 1e-3")
+            worst = max(worst, err)
+            out[f"max_abs_err_tq{tq}_l{l}"] = err
+
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.02
+    layer_iter = iter(range(10**9))
+
+    def kernel():  # cycle the layers: each call streams one layer from HBM
+        l = next(layer_iter) % n_layers
+        return da.cross_attention_int8(q, k8[l], v8[l], valid_len=valid)
+
+    ms = time_ms(kernel, iters=48)
+    plain = time_ms(lambda: da.cross_attention_int8_reference(q, k8[0], v8[0], valid_len=valid), iters=3)
+    lib = time_ms(_sdpa_on_dequantized(q, k8[0][..., :valid], v8[0][:, :, :valid]), iters=20)
+
+    def needed(rows):  # bytes (valid K/V bytes, q in, out) and FLOPs of one call
+        return 2 * rows * h * dh * valid + 2 * 4 * rows * h * dh, 4 * rows * h * dh * valid
+
+    bms, by = bound_ms(*needed(b))
+    qs, k8s, v8s = q[:8].contiguous(), k8[3, :8].contiguous(), v8[3, :8].contiguous()
+    got = da.cross_attention_int8(qs, k8s, v8s, valid_len=valid)
+    torch.cuda.synchronize()
+    err = (got - da.cross_attention_int8_reference(qs, k8s, v8s, valid_len=valid)).abs().max().item()
+    if not err <= 1e-3:
+        fail(f"cross_attn_int8 B=8: max abs err {err} > 1e-3")
+    worst = max(worst, err)
+    out.update(kernel_ms=ms, kernel_device_ms=device_ms(kernel, iters=48), plain_ms=plain,
+               library_ms=lib, bound_ms=bms, bound_by=by, timed="Tq=1, B=128, one layer per call",
+               max_abs_err_b8=err, bound_ms_b8=bound_ms(*needed(8))[0],
+               kernel_ms_b8=device_ms(lambda: da.cross_attention_int8(qs, k8s, v8s, valid_len=valid), iters=48))
+    kernels["cross_attn_int8"] = dict(
+        name="cross_attn_int8", route="cuda", source="audio_processor_tpu_torch/csrc/cross_attn_int8.cu",
+        replaces="audio_processor_tpu/ops/pallas/decode_attention.py:83",
+        max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=f"q ({b}, 1, {h}, {dh}) f32 vs layer of K/V ({n_layers}, {b}, {h}, ., {tpad}) int8",
+        ms_b8=out["kernel_ms_b8"], bound_ms_b8=out["bound_ms_b8"],
+    )
+    return out
+
+
+def phase_cross_attn_int4_single(dev, kernels) -> dict:
+    """Kernel #4 (kernel B's function on a single-layer cache, through kernel
+    B's library) against its plain version at B=8."""
+    from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+
+    b, h, dh, tpad, valid = 8, 12, 64, 1536, 1500
+    g = torch.Generator(device=dev).manual_seed(8)
+    k8 = torch.randint(-7, 8, (b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-7, 8, (b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    k4, v4 = da.pack_int4_time(k8, v8)
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.1
+    got = da.cross_attention_int4(q, k4, v4, valid_len=valid)
+    torch.cuda.synchronize()
+    err = (got - da.cross_attention_int4_reference(q, k4, v4, valid_len=valid)).abs().max().item()
+    if not err <= 5e-4:
+        fail(f"cross_attn_int4_single B=8: max abs err {err} > 5e-4")
+    ms = device_ms(lambda: da.cross_attention_int4(q, k4, v4, valid_len=valid), iters=48)
+    plain = time_ms(lambda: da.cross_attention_int4_reference(q, k4, v4, valid_len=valid), iters=5)
+    lib = time_ms(_sdpa_on_dequantized(q, k8[..., :valid], v8[:, :, :valid]), iters=20)
+    bms, by = bound_ms(2 * b * h * dh * math.ceil(valid / 2) + 2 * 4 * b * h * dh,
+                       4 * b * h * dh * valid)
+    kernels["cross_attn_int4_single"] = dict(
+        name="cross_attn_int4_single", route="cuda",
+        source="audio_processor_tpu_torch/csrc/cross_attn_int4.cu",
+        replaces="audio_processor_tpu/ops/pallas/decode_attention.py:277",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=f"q ({b}, 1, {h}, {dh}) f32 vs K/V ({b}, {h}, ., {tpad // 2}) int4x2",
+        main_path=("none: no path of the JAX package calls this kernel; its launches are "
+                   "counted over both warm transcribe runs and checked here alone"),
+    )
+    return {"phase": "cross_attn_int4_single", "batch": b, "max_abs_err": err,
+            "kernel_device_ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+            "bound_by": by}
+
+
 def phase_check(dev) -> dict:
     """Small-config reference check of the whole chain on full 30 s
-    windows: kernel A -> encoder -> int4 greedy decode through kernel B on
-    the card, against the CPU's plain path, float32.  The tokens must be
-    equal."""
+    windows, the card's kernels against the CPU's plain path, float32:
+    kernel A -> encoder (plain, and through the encoder-attention kernel)
+    -> int4 greedy (kernel B), int8-kernel greedy, beam search and prompted
+    greedy with rows of mixed prompt lengths, one of them empty.  The
+    tokens must be equal in every case."""
     from audio_processor_tpu_torch.models.whisper import decode, model
     from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 
-    cfg = WhisperConfig(name="check", n_mels=80, n_audio_ctx=1500, n_audio_state=64,
+    cfg = WhisperConfig(name="check", n_mels=80, n_audio_ctx=1500, n_audio_state=128,
                         n_audio_head=2, n_audio_layer=2, n_vocab=1024, n_text_ctx=64,
-                        n_text_state=64, n_text_head=2, n_text_layer=2)
+                        n_text_state=128, n_text_head=2, n_text_layer=2)  # 64-wide heads
     params = model.init_params(cfg, torch.Generator().manual_seed(2))
     st = decode.SpecialTokens.for_config(cfg)
-    audio = torch.from_numpy(np.stack([speech_like(30.0, 3), speech_like(30.0, 4)]))
+    sot = tuple(st.sot_sequence())
+    audio = torch.from_numpy(np.stack([speech_like(30.0, s) for s in (3, 4, 9)]))
+    rows, lens = decode.build_prompt_rows([[5, 6, 7, 8], [], [300]], sot, st, 4)
+    decodes = {
+        "greedy_int4": lambda p, x: decode.greedy_decode(
+            p, cfg, x, sot_sequence=sot, max_new_tokens=24, quantize_cross_kv=True, kv_bits=4),
+        "greedy_int8_kernel": lambda p, x: decode.greedy_decode(
+            p, cfg, x, sot_sequence=sot, max_new_tokens=24, quantize_cross_kv=True, kv_bits=8,
+            use_pallas_kernel=True),
+        "beam3_int4": lambda p, x: decode.beam_decode(
+            p, cfg, x, sot_sequence=sot, beam_size=3, max_new_tokens=24,
+            quantize_cross_kv=True, kv_bits=4),
+        "prompted_int4": lambda p, x: decode.prompted_greedy_decode(
+            p, cfg, x, rows, lens, sot_len=len(sot), max_new_tokens=24,
+            quantize_cross_kv=True, kv_bits=4),
+    }
     res = {}
     for where in ("cpu", "cuda"):
         p = model.map_params(lambda t: t.to(where), params)
-        states = model.encode(p, cfg, log_mel(audio.to(where), 80))
-        out = decode.greedy_decode(p, cfg, states, sot_sequence=tuple(st.sot_sequence()),
-                                   max_new_tokens=24, quantize_cross_kv=True, kv_bits=4)
-        res[where] = (states.cpu(), out.tokens.cpu())
-    enc_err = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
-    same = torch.equal(res["cpu"][1], res["cuda"][1])
-    if not (torch.isfinite(res["cuda"][0]).all() and enc_err <= 2e-3 and same):
-        fail(f"check: encoder max abs err {enc_err}, greedy tokens equal: {same}")
+        mel = log_mel(audio.to(where), 80)
+        states = model.encode(p, cfg, mel)
+        fused = model.encode(p, cfg, mel, fused_attn=True)
+        res[where] = {"states": states.cpu(), "fused": fused.cpu()}
+        for name, fn in decodes.items():
+            res[where][name] = fn(p, fused).tokens.cpu()
+    enc_err = (res["cpu"]["states"] - res["cuda"]["states"]).abs().max().item()
+    fused_err = (res["cpu"]["states"] - res["cuda"]["fused"]).abs().max().item()
+    same = {name: torch.equal(res["cpu"][name], res["cuda"][name]) for name in decodes}
+    if not (torch.isfinite(res["cuda"]["fused"]).all() and enc_err <= 2e-3 and fused_err <= 2e-3
+            and all(same.values())):
+        fail(f"check: encoder max abs err {enc_err}, fused encoder {fused_err}, "
+             f"tokens equal: {same}")
     return {"phase": "check", "encoder_max_abs_err_vs_cpu": enc_err,
-            "greedy_tokens_equal_cpu": same}
+            "fused_encoder_max_abs_err_vs_cpu": fused_err,
+            "tokens_equal_cpu": same, "greedy_tokens_equal_cpu": same["greedy_int4"]}
 
 
-def phase_transcribe(dev, counters) -> tuple[dict, object]:
+def zero_counts(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def read_counts(counters, off_path, phase: str) -> dict:
+    """Launches since zero_counts; every kernel in ``counters`` must have
+    launched, those in ``off_path`` (on no path) are read as they are."""
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(launches.values()):
+        fail(f"{phase}: a kernel of the path never launched: {launches}")
+    return {**launches, **{c.__name__: c.launches for c in off_path}}
+
+
+def phase_transcribe(dev, counters, off_path=()) -> tuple[dict, object]:
     from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
 
     t0 = time.perf_counter()
@@ -299,14 +498,11 @@ def phase_transcribe(dev, counters) -> tuple[dict, object]:
     init_s = time.perf_counter() - t0
     audio = speech_like(240.0, 5)
     cold = tr.transcribe(audio)
-    for c in counters:
-        c.launches = 0
     torch.cuda.synchronize()
+    zero_counts([*counters, *off_path])
     warm = tr.transcribe(audio)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    if not all(launches.values()):
-        fail(f"transcribe: a kernel of the main path never launched: {launches}")
+    launches = read_counts(counters, off_path, "transcribe")
     for out in (cold, warm):
         if not math.isclose(out["duration"], 240.0):
             fail(f"transcribe: duration {out['duration']}")
@@ -322,11 +518,51 @@ def phase_transcribe(dev, counters) -> tuple[dict, object]:
     }, tr
 
 
-def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool) -> dict:
+def phase_transcribe_openai(dev, counters, off_path=()) -> dict:
+    """openai-whisper's CLI defaults on the port: beam 5, conditioned on the
+    previous text, an initial prompt carried to every window, through the
+    fused encoder; 2 min of speech-like audio (4 windows), cold then warm.
+    Every counted kernel must launch in the warm run."""
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    tr = Transcriber.random_init(
+        "small", device=dev, beam_size=5, condition_on_previous_text=True,
+        initial_prompt="Minutes of the weekly planning meeting.", carry_initial_prompt=True,
+        use_pallas_encoder_attn=True,
+    )
+    audio = speech_like(120.0, 10)
+    cold = tr.transcribe(audio)
+    torch.cuda.synchronize()
+    zero_counts([*counters, *off_path])
+    warm = tr.transcribe(audio)
+    torch.cuda.synchronize()
+    launches = read_counts(counters, off_path, "transcribe_openai_defaults")
+    for out in (cold, warm):
+        if not math.isclose(out["duration"], 120.0):
+            fail(f"transcribe_openai_defaults: duration {out['duration']}")
+        for seg in out["segments"]:
+            if not (0.0 <= seg["start"] <= seg["end"] <= 120.0 + 1e-6
+                    and np.isfinite(seg["avg_logprob"])):
+                fail(f"transcribe_openai_defaults: bad segment {seg}")
+    return {
+        "phase": "transcribe_openai_defaults", "model": "small (random weights)",
+        "options": "beam_size=5, condition_on_previous_text, initial_prompt + carry, fused encoder",
+        "audio_s": 120.0, "windows": math.ceil(len(audio) / 480_000),
+        "cold_rtf_x": cold["rtf_x"], "warm_rtf_x": warm["rtf_x"],
+        "segments": len(warm["segments"]), "launches": launches,
+    }
+
+
+def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder: bool = False,
+                decoder: str = "int4", counters=()) -> dict:
     """The JAX package's bench.py headline workload on the port: int16 30 s
-    chunks -> log-mel -> encode -> 96-token int4 greedy decode, EOT
-    suppressed, bf16, ``bs`` windows a batch (bench.py and the
-    Transcriber's default slab use 128)."""
+    chunks -> log-mel -> encode -> 96-token decode, EOT suppressed, bf16,
+    ``bs`` windows a batch (bench.py and the Transcriber's default slab use
+    128).  ``decoder``: "int4" greedy (kernel B, the default), "int8-kernel"
+    greedy (the int8 kernel) or "beam5" (beam search over the int4 cache);
+    ``fused_encoder`` runs encoder attention through its kernel (bench.py
+    --fused-encoder).  ``counters`` are zeroed before the timed batches and
+    read after them."""
     from audio_processor_tpu_torch.models.whisper import decode, model
     from audio_processor_tpu_torch.ops import frontend
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
@@ -343,14 +579,18 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool) -> dict:
 
     def encode():
         mel = log_mel(audio_i16.float() / 32768.0, cfg.n_mels)
-        return model.encode(tr.params, cfg, mel, compute_dtype=torch.bfloat16)
+        return model.encode(tr.params, cfg, mel, compute_dtype=torch.bfloat16,
+                            fused_attn=fused_encoder)
+
+    kw = dict(sot_sequence=tuple(st.sot_sequence()), max_new_tokens=tokens, use_timestamps=True,
+              suppress_mask=suppress, dtype_name="bfloat16", quantize_cross_kv=True)
 
     def run_decode(states):
-        return decode.greedy_decode(
-            tr.params, cfg, states, sot_sequence=tuple(st.sot_sequence()),
-            max_new_tokens=tokens, use_timestamps=True, suppress_mask=suppress,
-            dtype_name="bfloat16", quantize_cross_kv=True, kv_bits=4,
-        )
+        if decoder == "beam5":
+            return decode.beam_decode(tr.params, cfg, states, beam_size=5, kv_bits=4, **kw)
+        if decoder == "int8-kernel":
+            return decode.greedy_decode(tr.params, cfg, states, kv_bits=8, use_pallas_kernel=True, **kw)
+        return decode.greedy_decode(tr.params, cfg, states, kv_bits=4, **kw)
 
     # warm-up, which also reads the peak memory of each half at this batch
     torch.cuda.synchronize()
@@ -365,9 +605,10 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool) -> dict:
     dec_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del states
     if not (res.tokens.shape[0] == bs and int(res.lengths.min()) == tokens):
-        fail(f"bench B={bs}: EOT-suppressed decode stopped early: {res.lengths.tolist()}")
+        fail(f"bench B={bs} {decoder}: EOT-suppressed decode stopped early: {res.lengths.tolist()}")
     # the decode loop is host-bound, and host time varies from call to call:
     # time several batches and report the median with its range
+    zero_counts(counters)
     enc_ms, dec_ms = [], []
     for _ in range(n_timed):
         t0 = time.perf_counter()
@@ -378,10 +619,12 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool) -> dict:
         t2 = time.perf_counter()
         enc_ms.append(1e3 * (t1 - t0))
         dec_ms.append(1e3 * (t2 - t1))
+    launches = read_counts(counters, (), f"bench B={bs} {decoder}")
     batch_ms = [e + d for e, d in zip(enc_ms, dec_ms)]
     med = float(np.median(batch_ms))
     out = {
         "phase": "bench", "model": "small", "batch": bs, "tokens": tokens, "dtype": "bfloat16",
+        "decoder": decoder, "fused_encoder": fused_encoder,
         "batches_timed": len(batch_ms), "rtf_x": bs * 30.0 / (med / 1e3),
         "rtf_x_range": [bs * 30.0e3 / max(batch_ms), bs * 30.0e3 / min(batch_ms)],
         "encode_ms_per_batch": float(np.median(enc_ms)),
@@ -389,7 +632,7 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool) -> dict:
         "ms_per_decode_step": float(np.median(dec_ms)) / tokens,
         "ms_per_decode_step_range": [min(dec_ms) / tokens, max(dec_ms) / tokens],
         "weights_gb": base_gb, "encode_peak_mem_gb": enc_peak_gb,
-        "decode_peak_mem_gb": dec_peak_gb,
+        "decode_peak_mem_gb": dec_peak_gb, "launches": launches,
     }
     if profile:
         out["profile"] = profile_decode(lambda: run_decode(encode()).tokens.cpu(), med)
@@ -418,7 +661,12 @@ def main() -> None:
     sys.path.insert(0, here)
     try:
         from audio_processor_tpu_torch.ops.kernels import build
-        from audio_processor_tpu_torch.ops.kernels.decode_attention import cross_attention_int4_stacked
+        from audio_processor_tpu_torch.ops.kernels.decode_attention import (
+            cross_attention_int4,
+            cross_attention_int4_stacked,
+            cross_attention_int8,
+        )
+        from audio_processor_tpu_torch.ops.kernels.encoder_attention import fused_self_attention
         from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
         from audio_processor_tpu_torch.runtime.device import resolve_device
     except ImportError as exc:
@@ -430,20 +678,41 @@ def main() -> None:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    logs = build.build(["log_mel", "cross_attn_int4"], ptxas_report=True)
+    logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn"],
+                       ptxas_report=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                     for k, v in logs.items()}})
     kernels: dict[str, dict] = {}
     emit(phase_log_mel(dev, kernels))
     emit(phase_cross_attn(dev, kernels))
+    emit(phase_cross_attn_int8(dev, kernels))
+    emit(phase_cross_attn_int4_single(dev, kernels))
+    emit(phase_encoder_attn(dev, kernels))
+    torch.cuda.empty_cache()
     emit(phase_check(dev))
-    summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
+    # kernel #4 is on no path: its counter is zeroed and read beside the others
+    summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked],
+                                   off_path=[cross_attention_int4])
     emit(summary)
     kernels["log_mel"]["launches"] = summary["launches"]["log_mel"]
     kernels["cross_attn_int4"]["launches"] = summary["launches"]["cross_attention_int4_stacked"]
+    openai = phase_transcribe_openai(dev, [log_mel, fused_self_attention, cross_attention_int4_stacked],
+                                     off_path=[cross_attention_int4])
+    emit(openai)
+    kernels["encoder_attn"]["launches"] = openai["launches"]["fused_self_attention"]
+    kernels["cross_attn_int4_single"]["launches"] = (
+        summary["launches"]["cross_attention_int4"] + openai["launches"]["cross_attention_int4"])
     emit(phase_bench(dev, tr, bs=32, n_timed=5, profile=True))
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False))
+    emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False, fused_encoder=True,
+                     counters=[fused_self_attention]))
+    int8 = phase_bench(dev, tr, bs=32, n_timed=3, profile=False, decoder="int8-kernel",
+                       counters=[cross_attention_int8])
+    emit(int8)
+    kernels["cross_attn_int8"]["launches"] = int8["launches"]["cross_attention_int8"]
+    emit(phase_bench(dev, tr, bs=32, n_timed=2, profile=False, decoder="beam5",
+                     counters=[cross_attention_int4_stacked]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": list(kernels.values())})

@@ -92,6 +92,21 @@ def test_init_cache_quantized_equal_jax(weights, states, bits):
     assert tuple(oc.self_k.shape) == (L_, B_, H_, T_, D_)
 
 
+def test_init_cache_int8_kernel_layout_bytes_equal_jax(weights, states):
+    """The int8 kernel layout: K (L, B, H, Dh, Tpad), V (L, B, H, Tpad, Dh),
+    zero-padded to a multiple of 128, byte for byte the JAX cache."""
+    jparams, params = weights
+    kw = dict(quantize_cross_kv=True, kernel_layout=True, kv_bits=8)
+    jc = jdecode.init_cache(jparams, JCFG, jnp.asarray(states), 5, **kw)
+    oc = decode.init_cache(params, CFG, torch.from_numpy(states), 5, **kw)
+    assert tuple(oc.cross_k.shape) == jc.cross_k.shape == (2, 3, 2, 32, 128)
+    assert tuple(oc.cross_v.shape) == jc.cross_v.shape == (2, 3, 2, 128, 32)
+    np.testing.assert_array_equal(oc.cross_k.numpy(), np.asarray(jc.cross_k))
+    np.testing.assert_array_equal(oc.cross_v.numpy(), np.asarray(jc.cross_v))
+    np.testing.assert_allclose(oc.cross_k_scale.numpy(), np.asarray(jc.cross_k_scale), atol=1e-6)
+    assert not oc.cross_k[..., CFG.n_audio_ctx:].any()
+
+
 def test_quantize_rounds_half_to_even():
     x = torch.tensor([0.5, 1.5, 2.5, -0.5, 7.0]).reshape(1, 1, 5, 1, 1)
     q, scale = decode._quantize_kv(x, bits=4)
@@ -139,13 +154,17 @@ def _greedy_pair(weights, states, suppress, **kw):
     return ref, ours
 
 
-@pytest.mark.parametrize("cache", ["int4", "int8", "float"])
+CACHES = {
+    "int4": dict(quantize_cross_kv=True, kv_bits=4),
+    "int8": dict(quantize_cross_kv=True, kv_bits=8),
+    "int8-kernel": dict(quantize_cross_kv=True, kv_bits=8, use_pallas_kernel=True),
+    "float": {},
+}
+
+
+@pytest.mark.parametrize("cache", ["int4", "int8", "float", "int8-kernel"])
 def test_greedy_decode_token_exact(weights, states, suppress, cache):
-    kw = {
-        "int4": dict(quantize_cross_kv=True, kv_bits=4),
-        "int8": dict(quantize_cross_kv=True, kv_bits=8),
-        "float": {},
-    }[cache]
+    kw = CACHES[cache]
     ref, ours = _greedy_pair(weights, states, suppress, **kw)
     np.testing.assert_array_equal(ours.tokens.numpy(), np.asarray(ref.tokens))
     np.testing.assert_array_equal(ours.lengths.numpy(), np.asarray(ref.lengths))
@@ -292,3 +311,149 @@ def test_rank_groups_equal_jax():
 def test_num_languages_delegates_to_special_tokens():
     assert dataclasses.replace(CFG, n_vocab=51866).num_languages == 100
     assert CFG.num_languages == 2
+
+
+# ---------------------------------------------------------------------------
+# prompted greedy decode and beam search
+# ---------------------------------------------------------------------------
+
+HISTORIES = [[5, 6, 7, 8, 9, 40], [], [100, 200], [7]]  # mixed, one empty
+
+
+@pytest.fixture(scope="module")
+def states4():
+    return np.random.default_rng(13).normal(0, 1, (4, CFG.n_audio_ctx, CFG.n_audio_state)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def narrow():
+    """A suppress mask that leaves EOT, six text tokens and the timestamps:
+    random weights then end hypotheses early, so beam search fills its
+    finished sets."""
+    mask = np.ones(CFG.n_vocab, bool)
+    mask[[ST.eot] + list(range(5, 11))] = False
+    mask[TB:] = False
+    return mask
+
+
+def test_build_prompt_rows_equal_jax():
+    jst = jdecode.SpecialTokens.for_config(JCFG)
+    sot = tuple(ST.sot_sequence())
+    for ctx in (0, 3, 8):
+        ours = decode.build_prompt_rows(HISTORIES + [[ST.eot, 5]], sot, ST, ctx)
+        ref = jdecode.build_prompt_rows(HISTORIES + [[ST.eot, 5]], sot, jst, ctx)
+        for o, r in zip(ours, ref):
+            np.testing.assert_array_equal(o, r)
+
+
+def _prompted_pair(weights, states, mask, rows, lens, **kw):
+    jparams, params = weights
+    common = dict(sot_len=len(ST.sot_sequence()), max_new_tokens=MAX_NEW, space_blank_id=32)
+    ref = jdecode.prompted_greedy_decode(
+        jparams, JCFG, jnp.asarray(states), jnp.asarray(rows), jnp.asarray(lens),
+        suppress_mask=jnp.asarray(mask), **common, **kw,
+    )
+    ours = decode.prompted_greedy_decode(
+        params, CFG, torch.from_numpy(states), rows, lens,
+        suppress_mask=torch.from_numpy(mask), **common, **kw,
+    )
+    return ref, ours
+
+
+@pytest.mark.parametrize("cache", ["float", "int4", "int8-kernel"])
+def test_prompted_greedy_token_exact(weights, states4, suppress, cache):
+    rows, lens = decode.build_prompt_rows(HISTORIES, tuple(ST.sot_sequence()), ST, 4)
+    ref, ours = _prompted_pair(weights, states4, suppress, rows, lens, **CACHES[cache])
+    np.testing.assert_array_equal(ours.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(ours.lengths.numpy(), np.asarray(ref.lengths))
+    np.testing.assert_allclose(ours.no_speech_prob.numpy(), np.asarray(ref.no_speech_prob), atol=1e-5)
+    np.testing.assert_allclose(ours.sum_logprob.numpy(), np.asarray(ref.sum_logprob), atol=1e-4)
+
+
+def test_prompted_with_empty_histories_equals_greedy(weights, states4, suppress):
+    _, params = weights
+    sot = tuple(ST.sot_sequence())
+    rows, lens = decode.build_prompt_rows([[]] * 4, sot, ST, 4)
+    kw = dict(max_new_tokens=MAX_NEW, suppress_mask=torch.from_numpy(suppress), space_blank_id=32,
+              quantize_cross_kv=True, kv_bits=4)
+    x = torch.from_numpy(states4)
+    prompted = decode.prompted_greedy_decode(params, CFG, x, rows, lens, sot_len=len(sot), **kw)
+    plain = decode.greedy_decode(params, CFG, x, sot_sequence=sot, **kw)
+    assert torch.equal(prompted.tokens, plain.tokens)
+    torch.testing.assert_close(prompted.sum_logprob, plain.sum_logprob, atol=1e-4, rtol=0)
+
+
+def test_prompted_is_padding_invariant(weights, states4, suppress):
+    """A row decodes to the same tokens alone and left-padded in a batch
+    whose prompts are longer (the padding is invisible)."""
+    _, params = weights
+    sot = tuple(ST.sot_sequence())
+    kw = dict(sot_len=len(sot), max_new_tokens=MAX_NEW, suppress_mask=torch.from_numpy(suppress),
+              space_blank_id=32)
+    x = torch.from_numpy(states4)
+    rows, lens = decode.build_prompt_rows(HISTORIES, sot, ST, 6)
+    batch = decode.prompted_greedy_decode(params, CFG, x, rows, lens, **kw)
+    for i, hist in enumerate(HISTORIES):
+        r1, l1 = decode.build_prompt_rows([hist], sot, ST, len(hist))
+        alone = decode.prompted_greedy_decode(params, CFG, x[i : i + 1], r1, l1, **kw)
+        assert torch.equal(alone.tokens[0], batch.tokens[i]), i
+
+
+def test_top_k_lower_index_matches_lax_top_k():
+    x = np.array([[1.0, 3.0, 3.0, -np.inf, 3.0, 0.5, -np.inf, -np.inf],
+                  [-np.inf] * 6 + [2.0, 2.0]], np.float32)
+    for k in (1, 3, 5):
+        vals, idx = decode._top_k_lower_index(torch.from_numpy(x), k)
+        jvals, jidx = jax.lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+
+# a covering set: every K, patience, length penalty, prompt and cache kind
+BEAM_CASES = {
+    "k1": dict(beam_size=1),
+    "k2": dict(beam_size=2),
+    "k5-patience2": dict(beam_size=5, patience=2.0),
+    "k2-lp1-int4": dict(beam_size=2, length_penalty=1.0, **CACHES["int4"]),
+    "k5-int8": dict(beam_size=5, **CACHES["int8"]),
+    "k2-patience2-int8kernel": dict(beam_size=2, patience=2.0, **CACHES["int8-kernel"]),
+    "k5-lp1-prompted-int4": dict(beam_size=5, length_penalty=1.0, prompted=True, **CACHES["int4"]),
+    "k2-prompted": dict(beam_size=2, prompted=True),
+    "k1-prompted-int8kernel": dict(beam_size=1, prompted=True, **CACHES["int8-kernel"]),
+}
+
+
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_beam_decode_token_exact(weights, states4, narrow, case):
+    jparams, params = weights
+    kw = dict(BEAM_CASES[case])
+    sot = tuple(ST.sot_sequence())
+    jkw, okw = {}, {}
+    if kw.pop("prompted", False):
+        rows, lens = decode.build_prompt_rows(HISTORIES, sot, ST, 4)
+        jkw = dict(prompt_tokens=jnp.asarray(rows), prompt_lens=jnp.asarray(lens))
+        okw = dict(prompt_tokens=rows, prompt_lens=lens)
+    common = dict(sot_sequence=sot, max_new_tokens=MAX_NEW, space_blank_id=32, **kw)
+    ref = jdecode.beam_decode(
+        jparams, JCFG, jnp.asarray(states4), suppress_mask=jnp.asarray(narrow), **common, **jkw,
+    )
+    ours = decode.beam_decode(
+        params, CFG, torch.from_numpy(states4), suppress_mask=torch.from_numpy(narrow),
+        **common, **okw,
+    )
+    np.testing.assert_array_equal(ours.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(ours.lengths.numpy(), np.asarray(ref.lengths))
+    np.testing.assert_allclose(ours.sum_logprob.numpy(), np.asarray(ref.sum_logprob), atol=1e-4)
+    np.testing.assert_allclose(ours.no_speech_prob.numpy(), np.asarray(ref.no_speech_prob), atol=1e-5)
+
+
+def test_beam_finished_sets_are_used(weights, states4, narrow):
+    """The narrow vocabulary makes hypotheses end before the token cap, so
+    the parity cases above run the finished-set and ranking paths."""
+    _, params = weights
+    out = decode.beam_decode(
+        params, CFG, torch.from_numpy(states4), sot_sequence=tuple(ST.sot_sequence()),
+        beam_size=5, max_new_tokens=MAX_NEW, suppress_mask=torch.from_numpy(narrow),
+        space_blank_id=32,
+    )
+    assert (out.lengths < MAX_NEW).any()

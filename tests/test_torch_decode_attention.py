@@ -82,3 +82,52 @@ def test_reference_equals_float_attention_in_time_order(rng):
     p /= p.sum(-1, keepdims=True)
     want = np.einsum("bhqt,bhtd->bqhd", p, v8[0].astype(np.float32))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,tq,valid", [(3, 1, VALID), (2, 3, TPAD)])
+def test_int8_plain_matches_jax_kernel(b, tq, valid):
+    """Kernel #3's plain version against the JAX int8 kernel (interpret)
+    and its reference, on one layer of the int8 kernel layout."""
+    rng = np.random.default_rng(20 + b)
+    k8 = rng.integers(-127, 128, (b, H, DH, TPAD)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (b, H, TPAD, DH)).astype(np.int8)
+    q = rng.normal(0, 0.02, (b, tq, H, DH)).astype(np.float32)
+    before = da.cross_attention_int8.launches
+    ours = da.cross_attention_int8(
+        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8), valid_len=valid
+    ).numpy()
+    jargs = (jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8))
+    kern = np.asarray(jda.cross_attention_int8(*jargs, valid_len=valid, interpret=True))
+    ref = np.asarray(jda.cross_attention_int8_reference(*jargs, valid_len=valid))
+    assert ours.shape == (b, tq, H, DH) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, kern, atol=2e-4)
+    np.testing.assert_allclose(ours, ref, atol=2e-4)
+    assert da.cross_attention_int8.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize("b,tq", [(3, 1), (2, 4)])
+def test_int4_single_layer_plain_matches_jax_kernel(b, tq):
+    """Kernel #4 (kernel B's function on a single-layer cache) against the
+    JAX ``cross_attention_int4`` in interpret mode."""
+    rng = np.random.default_rng(30 + b)
+    k8, v8 = _cache(rng, b)
+    k4, v4 = da.pack_int4_time(torch.from_numpy(k8[0]), torch.from_numpy(v8[0]))
+    q = rng.normal(0, 0.5, (b, tq, H, DH)).astype(np.float32)
+    before = da.cross_attention_int4.launches
+    ours = da.cross_attention_int4(torch.from_numpy(q), k4, v4, valid_len=VALID).numpy()
+    kern = np.asarray(jda.cross_attention_int4(
+        jnp.asarray(q), jnp.asarray(k4.numpy()), jnp.asarray(v4.numpy()),
+        valid_len=VALID, interpret=True,
+    ))
+    np.testing.assert_allclose(ours, kern, atol=2e-4)
+    assert da.cross_attention_int4.launches == before
+
+
+def test_wrappers_reject_other_devices():
+    q = torch.zeros((1, 1, H, DH), device="meta")
+    k = torch.zeros((1, H, DH, TPAD), dtype=torch.int8, device="meta")
+    v = torch.zeros((1, H, TPAD, DH), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        da.cross_attention_int8(q, k, v, valid_len=VALID)
+    with pytest.raises(ValueError):
+        da.cross_attention_int4(q, k[..., ::2], v[:, :, ::2], valid_len=VALID)

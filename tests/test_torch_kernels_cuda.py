@@ -1,5 +1,7 @@
-"""Kernels A (log-mel) and B (int4 cross-attention) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: A (log-mel), B (int4 cross-attention, stacked and single-layer), the
+int8 cross-attention and the encoder self-attention; and the decodes that
+run them (greedy, int8-kernel greedy, beam) against the CPU's tokens.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  This file imports neither jax nor the JAX package,
@@ -17,6 +19,7 @@ from audio_processor_tpu_torch.models.whisper import decode, model
 from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
 from audio_processor_tpu_torch.ops import frontend
 from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+from audio_processor_tpu_torch.ops.kernels import encoder_attention as ea
 from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 from audio_processor_tpu_torch.runtime.device import set_full_fp32
 
@@ -91,21 +94,124 @@ def test_resolve_device_keeps_float32_accumulation(dev):
                 or matmul.allow_fp16_reduced_precision_reduction)
 
 
-def test_greedy_decode_on_card_matches_cpu(dev):
-    """Float32 int4 greedy decode: the card path (kernel B) gives the CPU
-    path's tokens on a small config."""
-    cfg = WhisperConfig(name="small-test", n_mels=80, n_audio_ctx=96, n_audio_state=64,
-                        n_audio_head=2, n_audio_layer=1, n_vocab=1024, n_text_ctx=64,
-                        n_text_state=64, n_text_head=2, n_text_layer=2)
-    params = model.init_params(cfg, torch.Generator().manual_seed(0))
-    st = decode.SpecialTokens.for_config(cfg)
+SMALL = WhisperConfig(name="small-test", n_mels=80, n_audio_ctx=96, n_audio_state=64,
+                      n_audio_head=2, n_audio_layer=1, n_vocab=1024, n_text_ctx=64,
+                      n_text_state=64, n_text_head=2, n_text_layer=2)
+
+
+@pytest.mark.parametrize("kind,kw,counter", [
+    ("greedy-int4", dict(quantize_cross_kv=True, kv_bits=4), da.cross_attention_int4_stacked),
+    ("greedy-int8-kernel", dict(quantize_cross_kv=True, kv_bits=8, use_pallas_kernel=True),
+     da.cross_attention_int8),
+    ("beam3-int4", dict(beam_size=3, quantize_cross_kv=True, kv_bits=4),
+     da.cross_attention_int4_stacked),
+    ("beam2-int8-kernel", dict(beam_size=2, quantize_cross_kv=True, kv_bits=8,
+                               use_pallas_kernel=True), da.cross_attention_int8),
+])
+def test_decode_on_card_matches_cpu(dev, kind, kw, counter):
+    """Float32 decodes on a small config: the card path (through the
+    kernel named by ``counter``) gives the CPU path's tokens."""
+    params = model.init_params(SMALL, torch.Generator().manual_seed(0))
+    st = decode.SpecialTokens.for_config(SMALL)
     states = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (4, 96, 64)).astype(np.float32))
-    kw = dict(sot_sequence=tuple(st.sot_sequence()), max_new_tokens=16,
-              quantize_cross_kv=True, kv_bits=4)
-    cpu = decode.greedy_decode(params, cfg, states, **kw)
+    fn = decode.beam_decode if "beam_size" in kw else decode.greedy_decode
+    kw = dict(kw, sot_sequence=tuple(st.sot_sequence()), max_new_tokens=16)
+    cpu = fn(params, SMALL, states, **kw)
     gpu_params = model.map_params(lambda t: t.to(dev), params)
-    before = da.cross_attention_int4_stacked.launches
-    gpu = decode.greedy_decode(gpu_params, cfg, states.to(dev), **kw)
-    assert da.cross_attention_int4_stacked.launches > before
+    before = counter.launches
+    gpu = fn(gpu_params, SMALL, states.to(dev), **kw)
+    assert counter.launches > before
     assert torch.equal(gpu.tokens.cpu(), cpu.tokens)
     assert math.isclose(gpu.sum_logprob.sum().item(), cpu.sum_logprob.sum().item(), abs_tol=1e-2)
+
+
+@pytest.mark.parametrize("b,tq,layer", [(128, 1, 0), (128, 4, 11), (8, 1, 3)])
+def test_int8_cross_attention_kernel_matches_plain(dev, b, tq, layer):
+    """Whisper-small's int8 kernel layout (H=12, Dh=64, Tpad=1536, 1500
+    valid) read per layer in place; integer-unit outputs up to 127, f32
+    sums over 1500 keys in another order than the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(b + tq)
+    n_layers, h, dh, tpad, valid = 12, 12, 64, 1536, 1500
+    k8 = torch.randint(-127, 128, (n_layers, b, h, dh, tpad), device=dev, generator=g,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (n_layers, b, h, tpad, dh), device=dev, generator=g,
+                       dtype=torch.int8)
+    q = torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.02
+    before = da.cross_attention_int8.launches
+    out = da.cross_attention_int8(q, k8[layer], v8[layer], valid_len=valid)
+    torch.cuda.synchronize()
+    assert da.cross_attention_int8.launches == before + 1
+    ref = da.cross_attention_int8_reference(q, k8[layer], v8[layer], valid_len=valid)
+    assert (out - ref).abs().max().item() <= 1e-3
+
+
+def test_int4_single_layer_kernel_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, h, dh, tpad, valid = 8, 12, 64, 1536, 1500
+    k8 = torch.randint(-7, 8, (b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-7, 8, (b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    k4, v4 = da.pack_int4_time(k8, v8)
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.1
+    before = da.cross_attention_int4.launches
+    out = da.cross_attention_int4(q, k4, v4, valid_len=valid)
+    torch.cuda.synchronize()
+    assert da.cross_attention_int4.launches == before + 1
+    ref = da.cross_attention_int4_reference(q, k4, v4, valid_len=valid)
+    assert (out - ref).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("dtype,tol,t,h", [
+    (torch.bfloat16, 4e-3, 1500, 12), (torch.float32, 1e-4, 1500, 12),
+    (torch.bfloat16, 4e-3, 77, 2), (torch.float32, 1e-4, 77, 2),
+])
+def test_encoder_attention_kernel_matches_plain(dev, dtype, tol, t, h):
+    """Whisper-small's encoder shape (B=8, T=1500, H=12, Dh=64), read from
+    the split-heads views of one (B, T, 3*H*Dh) projection, and a short
+    ragged T with 2 heads.  Both sides keep the scores in f32 and round the
+    normalised P to bf16, so bf16 outputs (|x| up to ~0.3) differ by an
+    output ulp or two: 4e-3; f32 at 1e-4."""
+    g = torch.Generator(device=dev).manual_seed(t)
+    b, dh = 8, 64
+    qkv = torch.randn(b, t, 3 * h * dh, device=dev, generator=g).to(dtype)
+    q, k, v = (x.reshape(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
+    before = ea.fused_self_attention.launches
+    out = ea.fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ea.fused_self_attention.launches == before + 1
+    ref = ea.attention_reference(q, k, v)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_encoder_attention_kernel_peak_memory(dev):
+    """At the default slab (B=128, T=1500, H=12, Dh=64, bf16) one layer
+    call allocates only its output: far below one layer's f32 scores
+    (128 * 12 * 1500^2 * 4 B = 13.8 GB), which the plain path holds."""
+    b, t, h, dh = 128, 1500, 12, 64
+    q, k, v = (torch.randn(b, t, h, dh, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ea.fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= b * t * h * dh * 2 + (1 << 20)
+    assert torch.cuda.max_memory_allocated() < 13.8e9
+
+
+def test_new_wrappers_reject_bad_inputs(dev):
+    q = torch.zeros((2, 1, 2, 16), device=dev)
+    k8 = torch.zeros((2, 2, 16, 128), dtype=torch.int8, device=dev)
+    v8 = torch.zeros((2, 2, 128, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        da.cross_attention_int8(q, k8, v8.transpose(2, 3), valid_len=100)
+    with pytest.raises(ValueError):
+        da.cross_attention_int8(q, k8, v8, valid_len=200)
+    x = torch.zeros((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError):  # only 64-wide heads are instantiated
+        ea.fused_self_attention(x, x, x)
+    x32 = torch.zeros((1, 8, 2, 32), device=dev)
+    with pytest.raises(ValueError):
+        ea.fused_self_attention(x32, x32, x32)
+    with pytest.raises(ValueError):
+        ea.fused_self_attention(x.half(), x.half(), x.half())

@@ -153,13 +153,83 @@ def test_language_voting_equal_jax(speech_like_audio):
 
 
 @pytest.mark.parametrize("option", [
-    dict(beam_size=2), dict(condition_on_previous_text=True),
-    dict(word_timestamps=True), dict(initial_prompt="hi"), dict(prefix="hi"),
-    dict(quantize_self_kv=True), dict(cross_kv_bits=8),
+    dict(word_timestamps=True), dict(quantize_self_kv=True),
+    dict(word_timestamps=True, hallucination_silence_threshold=2.0), dict(mesh="dp"),
 ])
 def test_later_slice_options_raise(option):
     with pytest.raises(NotImplementedError):
         Transcriber.random_init("test", device="cpu", **option)
+
+
+# the options this slice ports, each against the JAX Transcriber
+PORTED_OPTIONS = {
+    "beam5": dict(beam_size=5),
+    "condition-group2": dict(condition_on_previous_text=True, condition_group_size=2),
+    "initial_prompt": dict(initial_prompt="hello there"),
+    "initial_prompt-carry": dict(initial_prompt="hello there", carry_initial_prompt=True),
+    "prefix": dict(prefix="so"),
+    "cross_kv_bits8": dict(cross_kv_bits=8),
+    "fused_encoder": dict(use_pallas_encoder_attn=True),
+    "beam3-condition-prompt": dict(
+        beam_size=3, condition_on_previous_text=True, condition_group_size=2,
+        initial_prompt="hello", patience=2.0, length_penalty=1.0,
+    ),
+    "condition-carry": dict(
+        condition_on_previous_text=True, condition_group_size=2,
+        initial_prompt="hello", carry_initial_prompt=True, condition_ctx_tokens=6,
+    ),
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED_OPTIONS))
+def test_ported_options_segments_equal_jax(pairs, speech_like_audio, name):
+    """Three windows (70 s), the open option set: segments, tokens, seek
+    and per-segment decode stats equal the JAX Transcriber's."""
+    jbase, pbase = pairs["open"]
+    kw = PORTED_OPTIONS[name]
+    jt = dataclasses.replace(jbase, **kw)
+    pt = Transcriber(
+        params=pbase.params, cfg=pbase.cfg, tokenizer=LetterTokenizer(),
+        no_speech_threshold=None, compute_dtype="float32", max_new_tokens=8,
+        enable_fallback=False, device="cpu", **kw,
+    )
+    audio = _multi_chunk(speech_like_audio)
+    ref = jt.transcribe(audio, remove_silence=False)
+    ours = pt.transcribe(audio, remove_silence=False)
+    assert _summary(ours) == _summary(ref)
+    assert ours["segments"]
+    for so, sr in zip(ours["segments"], ref["segments"]):
+        assert so["tokens"] == sr["tokens"] and so["seek"] == sr["seek"]
+        for key in ("avg_logprob", "no_speech_prob", "compression_ratio"):
+            assert so[key] == pytest.approx(sr[key], abs=1e-4), key
+
+
+def test_prompt_and_prefix_tokens_equal_jax(pairs):
+    jbase, pbase = pairs["open"]
+    kw = dict(initial_prompt="  a long prompt " * 8, prefix="the prefix")
+    jt = dataclasses.replace(jbase, **kw)
+    pt = Transcriber(params=pbase.params, cfg=pbase.cfg, tokenizer=LetterTokenizer(),
+                     compute_dtype="float32", max_new_tokens=8, device="cpu", **kw)
+    assert pt._initial_prompt_tokens == jt._initial_prompt_tokens
+    assert pt._prefix_tokens == jt._prefix_tokens
+    assert pt._sot_seq(None) == jt._sot_seq(None)
+    assert pt._carry_hists([[1, 2, 3]]) == jt._carry_hists([[1, 2, 3]])
+
+
+def test_conditioned_fallback_ladder_runs_on_cpu(pairs, speech_like_audio):
+    """Conditioned decoding through the retry ladder: every row fails a
+    logprob gate of +1, so the T=0.5 rung (prompt kept) and the T=1.0 rung
+    (prompt dropped) both run; beam rows retry by sampling."""
+    _, base = pairs["open"]
+    pt = Transcriber(
+        params=base.params, cfg=base.cfg, compute_dtype="float32", max_new_tokens=4,
+        device="cpu", best_of=2, beam_size=2, logprob_threshold=1.0,
+        compression_ratio_threshold=None, no_speech_threshold=None,
+        tokenizer=LetterTokenizer(), temperature_ladder=(0.5, 1.0),
+        condition_on_previous_text=True, condition_group_size=2, initial_prompt="hi",
+    )
+    out = pt.transcribe(_multi_chunk(speech_like_audio), remove_silence=False)
+    assert out["segments"] and {s["temperature"] for s in out["segments"]} == {1.0}
 
 
 def test_resample_and_batch_raise(pairs):
@@ -220,3 +290,36 @@ def test_from_npz_equals_jax(pairs, speech_like_audio, tmp_path):
 def test_warmup_runs_one_window(pairs):
     _, pt = pairs["defaults"]
     assert pt.warmup(1) > 0.0
+
+
+def test_cli_decoding_flags_on_cpu(speech_like_audio, tmp_path, capsys, monkeypatch):
+    """The JAX CLI's decoding flags reach the port's Transcriber under the
+    same option names, and a transcription with all of them runs."""
+    import json
+
+    from audio_processor_tpu_torch import cli
+    from audio_processor_tpu_torch.pipeline import transcribe
+
+    path = str(tmp_path / "a.wav")
+    wavio.write_wav(path, speech_like_audio, 16_000)
+    seen = {}
+    real = transcribe.Transcriber.random_init.__func__
+
+    def spy(cls, name="tiny", **kw):
+        seen.update(kw)
+        return real(cls, name, max_new_tokens=4, **kw)
+
+    monkeypatch.setattr(transcribe.Transcriber, "random_init", classmethod(spy))
+    cli.main([
+        "transcribe", path, "--model", "test", "--device", "cpu", "--json",
+        "--beam", "2", "--patience", "2", "--length-penalty", "1.0", "--best-of", "3",
+        "--initial-prompt", "hello", "--carry-initial-prompt", "--prefix", "so",
+        "--condition",
+    ])
+    out = json.loads(capsys.readouterr().out)
+    assert out["duration"] == pytest.approx(10.0)
+    assert seen == dict(
+        device="cpu", beam_size=2, patience=2.0, length_penalty=1.0, best_of=3,
+        initial_prompt="hello", carry_initial_prompt=True, prefix="so",
+        condition_on_previous_text=True,
+    )

@@ -7,6 +7,12 @@
 Without --npz the weights are random (seeded): the flow runs end to end,
 the text is meaningless.  --device defaults to the card; --device cpu runs
 the plain PyTorch path.
+
+Sharded serving, one process a rank (``torchrun`` sets the topology; rank 0
+prints the result):
+
+    torchrun --nproc-per-node 4 -m audio_processor_tpu_torch.cli transcribe \
+        meeting.wav --model small --model-parallel 2 --json
 """
 from __future__ import annotations
 
@@ -36,6 +42,12 @@ def cmd_transcribe(args) -> None:
         kw["carry_initial_prompt"] = True
     if args.condition:
         kw["condition_on_previous_text"] = True
+    mesh = None
+    if args.model_parallel:
+        from .parallel import multihost
+
+        multihost.initialize(device=args.device)
+        mesh = kw["mesh"] = multihost.make_multihost_mesh(args.model_parallel, device=args.device)
     if args.npz:
         t = Transcriber.from_npz(
             args.npz, tokenizer_path=args.tokenizer, device=args.device, **kw
@@ -43,6 +55,10 @@ def cmd_transcribe(args) -> None:
     else:
         t = Transcriber.random_init(args.model, device=args.device, **kw)
     out = t.transcribe(args.audio, remove_silence=not args.keep_silence)
+    if mesh is not None:
+        multihost.shutdown()
+        if mesh.data_rank or mesh.model_rank:
+            return  # every rank holds the same result; rank 0 prints it
     if args.json:
         print(json.dumps(out, indent=2))
         return
@@ -79,6 +95,9 @@ def main(argv: list[str] | None = None) -> None:
     t.add_argument("--condition", action="store_true",
                    help="condition each window on the previous windows' text "
                    "(openai's condition_on_previous_text, in window groups)")
+    t.add_argument("--model-parallel", dest="model_parallel", type=int, default=0,
+                   help="serve on a (data, model) mesh over the ranks torchrun (or the "
+                   "APTPU_* env) starts, heads split over this many ranks")
     t.set_defaults(fn=cmd_transcribe)
     args = ap.parse_args(argv)
     args.fn(args)

@@ -25,6 +25,15 @@ Differences in idiom from the JAX version:
   * Beam search breaks ties as ``jax.lax.top_k`` and the stable
     ``jnp.argsort`` do, toward the lower index (``_top_k_lower_index``,
     ``torch.argsort(stable=True)``); ``torch.topk`` promises no order.
+  * Under a (data, model) mesh (``mesh=``) the parameters are this model
+    rank's slices (``parallel/sharding.py``) and the decodes run on the
+    rank's rows: self- and cross-attention on its heads (the caches hold
+    only those), the three row-parallel products summed over the model
+    group, and the int4 cross-attention through kernel #5.  The logits
+    follow the all-reduce and a replicated unembedding, so they, and every
+    token picked from them, are the same on every rank of a model group;
+    sampling draws from generators seeded alike.  JAX shards one program
+    over the mesh instead (GSPMD).
 """
 from __future__ import annotations
 
@@ -37,11 +46,22 @@ import torch
 
 from ...ops.kernels.decode_attention import (
     cross_attention_int4_stacked,
+    cross_attention_int4_stacked_tp,
     cross_attention_int8,
     pack_int4_time,
 )
 from .config import WhisperConfig
-from .model import Params, layer, layer_norm, linear, merge_heads, mlp, split_heads
+from .model import (
+    Params,
+    layer,
+    layer_norm,
+    linear,
+    local_heads,
+    merge_heads,
+    mlp,
+    row_parallel_linear,
+    split_heads,
+)
 
 NEG_INF = float("-inf")
 
@@ -189,19 +209,22 @@ class Cache:
     cross_bits: int = 8  # precision of a quantized cross cache: 8 or 4
 
 
-def _cross_kv(bp: Params, cfg: WhisperConfig, audio_states: torch.Tensor):
-    """One decoder layer's cross K/V over the encoder states: (B, Ta, H, Dh)."""
-    k = split_heads(linear(bp["cross_attn"]["k"], audio_states), cfg.n_text_head)
-    v = split_heads(linear(bp["cross_attn"]["v"], audio_states), cfg.n_text_head)
+def _cross_kv(bp: Params, n_head: int, audio_states: torch.Tensor):
+    """One decoder layer's cross K/V over the encoder states: (B, Ta, H, Dh)
+    for the n_head heads held here."""
+    k = split_heads(linear(bp["cross_attn"]["k"], audio_states), n_head)
+    v = split_heads(linear(bp["cross_attn"]["v"], audio_states), n_head)
     return k, v
 
 
 def precompute_cross_attn(
-    params: Params, cfg: WhisperConfig, audio_states: torch.Tensor
+    params: Params, cfg: WhisperConfig, audio_states: torch.Tensor, mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K/V over encoder states for every decoder layer: (L, B, Ta, H, Dh)."""
+    """K/V over encoder states for every decoder layer: (L, B, Ta, H, Dh),
+    H the heads of this model rank."""
     blocks = params["decoder"]["blocks"]
-    kv = [_cross_kv(layer(blocks, l), cfg, audio_states) for l in range(cfg.n_text_layer)]
+    h = local_heads(cfg.n_text_head, mesh)
+    kv = [_cross_kv(layer(blocks, l), h, audio_states) for l in range(cfg.n_text_layer)]
     return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 
 
@@ -225,8 +248,10 @@ def init_cache(
     quantize_cross_kv: bool = False,
     kernel_layout: bool = False,
     kv_bits: int = 8,
+    mesh=None,
 ) -> Cache:
-    """Preallocate the self cache and precompute the cross cache.
+    """Preallocate the self cache and precompute the cross cache, for the
+    heads of this model rank under a mesh.
 
     quantize_cross_kv: int8 per (layer, batch, head, channel).  With
     kernel_layout the cache is transposed to K (L, B, H, Dh, Tpad) and V
@@ -234,18 +259,19 @@ def init_cache(
     decode kernels; kv_bits=4 further quantizes to int4 and nibble-packs
     the time axis.  The quantized cache is built one layer at a time, so
     the float K/V of only one layer is live at once (the result equals
-    quantizing the stack).
+    quantizing the stack).  The quantization is per head, so a rank's
+    cache bytes are the head slice of the whole cache's.
     """
     b = audio_states.shape[0]
-    n_layer, h = cfg.n_text_layer, cfg.n_text_head
-    dh = cfg.n_text_state // h
+    n_layer, h = cfg.n_text_layer, local_heads(cfg.n_text_head, mesh)
+    dh = cfg.n_text_state // cfg.n_text_head  # the model's head width under any split
     dev = audio_states.device
     shape = (n_layer, b, h, max_len, dh)
     self_k = torch.zeros(shape, dtype=dtype, device=dev)
     self_v = torch.zeros(shape, dtype=dtype, device=dev)
     audio = audio_states.to(dtype)
     if not quantize_cross_kv:
-        ck, cv = precompute_cross_attn(params, cfg, audio)
+        ck, cv = precompute_cross_attn(params, cfg, audio, mesh)
         return Cache(self_k, self_v, ck.to(dtype), cv.to(dtype))
     bits = kv_bits if kernel_layout else 8
     if bits not in (4, 8):
@@ -263,7 +289,7 @@ def init_cache(
     vs = torch.empty_like(ks)
     blocks = params["decoder"]["blocks"]
     for l in range(n_layer):
-        k, v = _cross_kv(layer(blocks, l), cfg, audio)
+        k, v = _cross_kv(layer(blocks, l), h, audio)
         k8, ks[l] = _quantize_kv(k[None].float(), bits=bits)
         v8, vs[l] = _quantize_kv(v[None].float(), bits=bits)
         k8, v8 = k8[0], v8[0]
@@ -322,6 +348,7 @@ def decoder_forward_cached(
     kernel_layout: bool = False,
     logit_positions: tuple[int, ...] | None = None,
     unembed: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, Cache]:
     """Run the decoder over T new tokens, writing their K/V into the cache
     at ``pos`` (in place).  Returns (logits (B, T', V) float32, cache).
@@ -337,6 +364,8 @@ def decoder_forward_cached(
     the sot slot and the last position).
     unembed: the token embedding in float32, when the caller holds one
     across steps (the decode loops convert it once per decode).
+    mesh: the params and the cache are this model rank's (its heads); the
+    int4 cross-attention runs through kernel #5 when tp > 1.
     """
     p = params["decoder"]
     b, t = tokens.shape
@@ -349,7 +378,8 @@ def decoder_forward_cached(
     x = p["token_emb"][tokens].to(dtype) + pe.to(dtype)
     t_valid = pos + torch.arange(t, device=tokens.device) + 1
     quantized = cache.cross_k_scale is not None
-    n_head = cfg.n_text_head
+    n_head = local_heads(cfg.n_text_head, mesh)
+    tp = 1 if mesh is None else mesh.tp
     for l in range(cfg.n_text_layer):
         bp = layer(p["blocks"], l)
         # --- causal self-attention against the running cache
@@ -364,14 +394,19 @@ def decoder_forward_cached(
             q, cache.self_k[l, :, :, : pos + t], cache.self_v[l, :, :, : pos + t],
             t_valid, min_valid,
         )
-        x = x + linear(bp["attn"]["out"], merge_heads(o))
+        x = x + row_parallel_linear(bp["attn"]["out"], merge_heads(o), mesh)
         # --- cross-attention against the precomputed encoder K/V
         xa = layer_norm(bp["cross_attn_ln"], x)
         qx = split_heads(linear(bp["cross_attn"]["q"], xa), n_head)
         if quantized:
             # K's dequant scale folds into q, V's after the probs matmul
             qx = qx * cache.cross_k_scale[l].to(qx.dtype)
-            if kernel_layout and cache.cross_bits == 4:
+            if kernel_layout and cache.cross_bits == 4 and tp > 1:
+                ox = cross_attention_int4_stacked_tp(
+                    mesh, qx.float().contiguous(), cache.cross_k, cache.cross_v, l,
+                    valid_len=cfg.n_audio_ctx, n_head=cfg.n_text_head,
+                ).to(x.dtype)
+            elif kernel_layout and cache.cross_bits == 4:
                 ox = cross_attention_int4_stacked(
                     qx.float().contiguous(), cache.cross_k, cache.cross_v, l,
                     valid_len=cfg.n_audio_ctx,
@@ -391,9 +426,9 @@ def decoder_forward_cached(
             ox = _cached_attention(
                 qx, cache.cross_k[l].transpose(1, 2), cache.cross_v[l].transpose(1, 2)
             )
-        x = x + linear(bp["cross_attn"]["out"], merge_heads(ox))
+        x = x + row_parallel_linear(bp["cross_attn"]["out"], merge_heads(ox), mesh)
         # --- MLP
-        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x), mesh)
     if logit_positions is not None:
         x = x[:, [q % t for q in logit_positions]]
     x = layer_norm(p["ln"], x)
@@ -508,6 +543,7 @@ def _sample_loop(
     max_initial_ts_index: int | None = 50,
     kernel_layout: bool = False,
     unembed: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Sample until every row has emitted EOT or max_new_tokens is reached;
     shared by plain and prompted decode.  Returns (tokens (B, max_new),
@@ -551,7 +587,8 @@ def _sample_loop(
             break
         logits, _ = decoder_forward_cached(
             params, cfg, next_tok[:, None], cache, start_pos + step,
-            pos_offset=pos_offset, min_valid=min_valid, compute_dtype=compute_dtype, kernel_layout=kernel_layout, unembed=unembed,
+            pos_offset=pos_offset, min_valid=min_valid, compute_dtype=compute_dtype,
+            kernel_layout=kernel_layout, unembed=unembed, mesh=mesh,
         )
         logits = logits[:, -1]
     lengths = (tokens != st.eot).sum(dim=-1)
@@ -611,6 +648,7 @@ def _decode_rows(
     rng_seed: int,
     best_of: int,
     max_initial_ts_index: int | None,
+    mesh=None,
 ) -> DecodeResult:
     """The greedy/sampling decode of greedy_decode and
     prompted_greedy_decode: best_of expansion, cache, prefill (no-speech
@@ -631,11 +669,11 @@ def _decode_rows(
     cache = init_cache(
         params, cfg, audio_states, p_len + max_new_tokens, dtype=dtype,
         quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-        kv_bits=kv_bits,
+        kv_bits=kv_bits, mesh=mesh,
     )
     unembed = params["decoder"]["token_emb"].float()
     row_kw = dict(pos_offset=pad_len, min_valid=pad_len, compute_dtype=dtype,
-                  kernel_layout=kernel_layout, unembed=unembed)
+                  kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)
     # prefill; unembed only the sot slot (fixed: every row ends in the same
     # sot sequence) and the last one
     logits, cache = decoder_forward_cached(
@@ -679,6 +717,7 @@ def greedy_decode(
     rng_seed: int = 0,
     best_of: int = 1,
     max_initial_ts_index: int | None = 50,
+    mesh=None,
 ) -> DecodeResult:
     """Batched greedy/sampling decode with Whisper's rules.
 
@@ -689,6 +728,7 @@ def greedy_decode(
     read through kernel B on the card; with kv_bits=8 the int8 cache, in
     the kernel layout read through the int8 kernel when use_pallas_kernel
     (the JAX package's name for it), else read through plain attention.
+    mesh: decode this rank's rows on its shard (module docstring).
     """
     b, dev = audio_states.shape[0], audio_states.device
     prompt = torch.tensor(sot_sequence, dtype=torch.long, device=dev)[None].repeat(b, 1)
@@ -702,7 +742,7 @@ def greedy_decode(
         dtype_name=dtype_name, quantize_cross_kv=quantize_cross_kv,
         use_pallas_kernel=use_pallas_kernel, kv_bits=kv_bits,
         temperature=temperature, rng_seed=rng_seed, best_of=best_of,
-        max_initial_ts_index=max_initial_ts_index,
+        max_initial_ts_index=max_initial_ts_index, mesh=mesh,
     )
 
 
@@ -730,6 +770,7 @@ def prompted_greedy_decode(
     rng_seed: int = 0,
     best_of: int = 1,
     max_initial_ts_index: int | None = 50,
+    mesh=None,
 ) -> DecodeResult:
     """Greedy/sampling decode with PER-ROW prompts: openai-whisper's
     <|startofprev|> + previous text + sot sequence, batched.  Rows are
@@ -751,7 +792,7 @@ def prompted_greedy_decode(
         dtype_name=dtype_name, quantize_cross_kv=quantize_cross_kv,
         use_pallas_kernel=use_pallas_kernel, kv_bits=kv_bits,
         temperature=temperature, rng_seed=rng_seed, best_of=best_of,
-        max_initial_ts_index=max_initial_ts_index,
+        max_initial_ts_index=max_initial_ts_index, mesh=mesh,
     )
 
 
@@ -817,6 +858,7 @@ def beam_decode(
     prompt_lens=None,  # (B,) real tokens per row
     max_initial_ts_index: int | None = 50,
     space_blank_id: int | None = None,
+    mesh=None,
 ) -> DecodeResult:
     """Batched beam search with openai-whisper's BeamSearchDecoder
     semantics.
@@ -840,7 +882,8 @@ def beam_decode(
     <|startofprev|> prompts, padding invisible as in prompted_greedy_decode;
     the pad lengths are per element, so the beam reorder (which permutes
     beams within an element) leaves them unchanged.  no_speech_prob is
-    read from beam 0's prefill (the beams are identical there).
+    read from beam 0's prefill (the beams are identical there).  mesh:
+    decode this rank's rows on its shard (module docstring).
     """
     st = SpecialTokens.for_config(cfg)
     dtype = getattr(torch, dtype_name)
@@ -857,10 +900,10 @@ def beam_decode(
     cache = init_cache(
         params, cfg, audio_states.repeat_interleave(k, dim=0), prompt_len + max_new_tokens,
         dtype=dtype, quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-        kv_bits=kv_bits,
+        kv_bits=kv_bits, mesh=mesh,
     )
     unembed = params["decoder"]["token_emb"].float()
-    row_kw = dict(compute_dtype=dtype, kernel_layout=kernel_layout, unembed=unembed)
+    row_kw = dict(compute_dtype=dtype, kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)
     if prompted:
         prompt = prompt_tokens.repeat_interleave(k, dim=0)
         pad_len = (prompt_len - prompt_lens).repeat_interleave(k, dim=0)  # (B*K,)
@@ -988,16 +1031,16 @@ def beam_decode(
 # ---------------------------------------------------------------------------
 
 def detect_language(
-    params: Params, cfg: WhisperConfig, audio_states: torch.Tensor
+    params: Params, cfg: WhisperConfig, audio_states: torch.Tensor, mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decoder step on <|sot|> over an UNQUANTIZED float32 cache;
     returns (lang_index (B,), probs (B, n_lang)), the index relative to
     SpecialTokens.lang_begin."""
     st = SpecialTokens.for_config(cfg)
     b = audio_states.shape[0]
-    cache = init_cache(params, cfg, audio_states, max_len=1)
+    cache = init_cache(params, cfg, audio_states, max_len=1, mesh=mesh)
     sot = torch.full((b, 1), st.sot, dtype=torch.long, device=audio_states.device)
-    logits, _ = decoder_forward_cached(params, cfg, sot, cache, 0)
+    logits, _ = decoder_forward_cached(params, cfg, sot, cache, 0, mesh=mesh)
     lang_logits = logits[:, 0, st.lang_begin : st.lang_begin + st.num_languages]
     probs = torch.softmax(lang_logits, dim=-1)
     return probs.argmax(dim=-1), probs

@@ -13,6 +13,12 @@ population variance, linear layers as ``x @ W + b`` with ``W`` stored
 plain ``attention`` lives beside the encoder-attention kernel, in
 ``ops/kernels/encoder_attention.py``), and the conv stem's bias added in
 the compute dtype.
+
+Under a (data, model) mesh (``parallel/mesh.py``) each rank holds its
+slice of the parameters (``parallel/sharding.py``): attention runs on the
+rank's heads and the MLP on its hidden units, and the two row-parallel
+products (attention out, fc2) are summed over the model group by
+``row_parallel_linear``.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from ...ops.kernels.encoder_attention import attention_reference as attention
 from ...ops.kernels.encoder_attention import fused_self_attention
+from ...parallel import mesh as mesh_lib
 from .config import WhisperConfig
 
 Params = dict[str, Any]
@@ -146,6 +153,31 @@ def linear(p, x):
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def row_parallel_linear(p, x, mesh):
+    """``linear`` whose W rows (d_in) are split over the model axis: each
+    rank's partial product, with no bias, is summed over the model group
+    in float32; the replicated bias joins once and the sum rounds once to
+    x's dtype, as the unsplit addmm does.  Plain ``linear`` when tp == 1."""
+    if mesh is None or mesh.tp == 1:
+        return linear(p, x)
+    x2 = x.reshape(-1, x.shape[-1])
+    w = p["w"].to(x.dtype)
+    if x.is_cuda and x.dtype != torch.float32:
+        part = torch.mm(x2, w, out_dtype=torch.float32)
+    else:  # the exactly upcast operands
+        part = torch.mm(x2.float(), w.float())
+    part = mesh_lib.all_reduce(part, mesh)
+    if "b" in p:
+        part = part + p["b"].float()
+    return part.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def local_heads(n_head: int, mesh) -> int:
+    """Heads of this model rank (all of them when tp == 1)."""
+    lo, hi = mesh_lib.split_bounds(n_head, mesh)
+    return hi - lo
+
+
 def gelu(x):
     return F.gelu(x, approximate="none")
 
@@ -169,18 +201,19 @@ def merge_heads(x):
     return x.reshape(b, t, h * dh)
 
 
-def self_attention(p, x, n_head, fused=False):
-    """fused=True runs the encoder-attention kernel (the plain version on
-    CPU tensors); the default is the plain matmuls, as in JAX."""
+def self_attention(p, x, n_head, fused=False, mesh=None):
+    """n_head: the heads held here (the rank's under a mesh).  fused=True
+    runs the encoder-attention kernel (the plain version on CPU tensors);
+    the default is the plain matmuls, as in JAX."""
     q = split_heads(linear(p["q"], x), n_head)
     k = split_heads(linear(p["k"], x), n_head)
     v = split_heads(linear(p["v"], x), n_head)
     o = fused_self_attention(q, k, v) if fused else attention(q, k, v)
-    return linear(p["out"], merge_heads(o))
+    return row_parallel_linear(p["out"], merge_heads(o), mesh)
 
 
-def mlp(p, x):
-    return linear(p["fc2"], gelu(linear(p["fc1"], x)))
+def mlp(p, x, mesh=None):
+    return row_parallel_linear(p["fc2"], gelu(linear(p["fc1"], x)), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +234,14 @@ def encode(
     *,
     compute_dtype: torch.dtype = torch.float32,
     fused_attn: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """mel (B, n_mels, 3000) -> encoder states (B, 1500, d).  fused_attn
-    runs self-attention through the encoder-attention kernel."""
+    runs self-attention through the encoder-attention kernel.  mesh: the
+    params are this model rank's slices (every rank returns the whole
+    states)."""
     p = params["encoder"]
+    n_head = local_heads(cfg.n_audio_head, mesh)
     x = mel.to(compute_dtype)  # (B, n_mels, T): conv1d's channel-first layout
     x = gelu(_conv1d(p["conv1"], x, stride=1))
     x = gelu(_conv1d(p["conv2"], x, stride=2))  # (B, d, 1500)
@@ -212,7 +249,7 @@ def encode(
     for l in range(cfg.n_audio_layer):
         bp = layer(p["blocks"], l)
         x = x + self_attention(
-            bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_audio_head, fused=fused_attn
+            bp["attn"], layer_norm(bp["attn_ln"], x), n_head, fused=fused_attn, mesh=mesh
         )
-        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x), mesh)
     return layer_norm(p["ln_post"], x)

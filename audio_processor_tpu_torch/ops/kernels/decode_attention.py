@@ -5,6 +5,9 @@ C++), with the int4 cache format helpers and each kernel's plain version.
   one layer of the stacked nibble-packed int4 cache.  Replaces the TPU
   kernel ``cross_attention_int4_stacked``
   (``audio_processor_tpu/ops/pallas/decode_attention.py:411``).
+* Kernel #5, ``cross_attention_int4_stacked_tp``: kernel B on one rank's
+  shard of a (data, model) mesh, its heads and rows.  Replaces the TPU
+  kernel ``cross_attention_int4_stacked_tp`` (``decode_attention.py:471``).
 * ``cross_attention_int4``: the same function on a single-layer cache
   (B, H, Dh, Tpad/2), launched through kernel B's library.  Replaces the
   TPU kernel ``cross_attention_int4`` (``decode_attention.py:277``).
@@ -126,6 +129,36 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _launch_int4_stacked(name, q, k4_all, v4_all, layer, valid_len) -> torch.Tensor:
+    """Kernel B on layer ``layer`` of a stacked packed cache, read in place
+    through a pointer offset (no per-layer copy); CUDA tensors only."""
+    b, tq, h, dh = q.shape
+    n_layers, half = k4_all.shape[0], k4_all.shape[4]
+    _check_q(q, name)
+    _check_cache("k4_all", k4_all, q.device, (n_layers, b, h, dh, half))
+    _check_cache("v4_all", v4_all, q.device, (n_layers, b, h, half, dh))
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} out of range for {n_layers} layers")
+    if dh % 4 or half % 4:
+        raise ValueError(f"kernel needs Dh and Tpad/2 divisible by 4 (Dh={dh}, Tpad/2={half})")
+    if not 1 <= valid_len <= 2 * half:
+        raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
+    lib = _library()
+    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    layer_bytes = b * h * dh * half
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.cross_attn_int4_launch(
+        q.data_ptr(),
+        k4_all.data_ptr() + layer * layer_bytes,
+        v4_all.data_ptr() + layer * layer_bytes,
+        out.data_ptr(), b, tq, h, dh, half, valid_len,
+        1.0 / math.sqrt(dh), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"cross_attn_int4 kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def cross_attention_int4_stacked(
     q: torch.Tensor,
     k4_all: torch.Tensor,
@@ -149,35 +182,59 @@ def cross_attention_int4_stacked(
         )
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_int4_stacked: unsupported device {q.device}")
-    b, tq, h, dh = q.shape
-    n_layers, half = k4_all.shape[0], k4_all.shape[4]
-    _check_q(q, "cross_attention_int4_stacked")
-    _check_cache("k4_all", k4_all, q.device, (n_layers, b, h, dh, half))
-    _check_cache("v4_all", v4_all, q.device, (n_layers, b, h, half, dh))
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} out of range for {n_layers} layers")
-    if dh % 4 or half % 4:
-        raise ValueError(f"kernel needs Dh and Tpad/2 divisible by 4 (Dh={dh}, Tpad/2={half})")
-    if not 1 <= valid_len <= 2 * half:
-        raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
-    lib = _library()
-    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
-    layer_bytes = b * h * dh * half
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.cross_attn_int4_launch(
-        q.data_ptr(),
-        k4_all.data_ptr() + layer * layer_bytes,
-        v4_all.data_ptr() + layer * layer_bytes,
-        out.data_ptr(), b, tq, h, dh, half, valid_len,
-        1.0 / math.sqrt(dh), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"cross_attn_int4 kernel launch failed: CUDA error {rc}")
+    out = _launch_int4_stacked("cross_attention_int4_stacked", q, k4_all, v4_all, layer, valid_len)
     cross_attention_int4_stacked.launches += 1
     return out
 
 
 cross_attention_int4_stacked.launches = 0
+
+
+def cross_attention_int4_stacked_tp(
+    mesh,
+    q_local: torch.Tensor,
+    k4_local: torch.Tensor,
+    v4_local: torch.Tensor,
+    layer: int,
+    *,
+    valid_len: int,
+    n_head: int,
+) -> torch.Tensor:
+    """Kernel #5: kernel B on this rank's shard of a (data, model) mesh.
+
+    Heads are split over the model axis (the q/k/v projections are column
+    parallel, so q arrives with the rank's heads) and rows over the data
+    axis: q_local (B/dp, Tq, H/tp, Dh) float32 against the rank's stacked
+    cache, k4_local (L, B/dp, H/tp, Dh, Tpad/2) and v4_local
+    (L, B/dp, H/tp, Tpad/2, Dh).  Heads are independent in this function,
+    so no collective runs here (the row-parallel output projection sums
+    over the model group afterwards).  ``n_head``: the model's heads, H;
+    raises ValueError when they do not split evenly over tp.
+
+    CUDA tensors: kernel B's library on the rank's tensors, the layer read
+    in place, or an error.  CPU tensors: the plain version.
+    """
+    tp = 1 if mesh is None else mesh.tp
+    if n_head % tp:
+        raise ValueError(f"{n_head} heads do not shard over tp={tp}")
+    if q_local.shape[2] != n_head // tp:
+        raise ValueError(
+            f"q_local holds {q_local.shape[2]} heads, expected {n_head // tp} of {n_head} over tp={tp}"
+        )
+    if q_local.device.type == "cpu":
+        return cross_attention_int4_reference(
+            q_local, k4_local[layer], v4_local[layer], valid_len=valid_len
+        )
+    if q_local.device.type != "cuda":
+        raise ValueError(f"cross_attention_int4_stacked_tp: unsupported device {q_local.device}")
+    out = _launch_int4_stacked(
+        "cross_attention_int4_stacked_tp", q_local, k4_local, v4_local, layer, valid_len
+    )
+    cross_attention_int4_stacked_tp.launches += 1
+    return out
+
+
+cross_attention_int4_stacked_tp.launches = 0
 
 
 def cross_attention_int4(
@@ -194,23 +251,7 @@ def cross_attention_int4(
         return cross_attention_int4_reference(q, k4, v4, valid_len=valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_int4: unsupported device {q.device}")
-    _check_q(q, "cross_attention_int4")
-    b, tq, h, dh = q.shape
-    half = k4.shape[-1]
-    _check_cache("k4", k4, q.device, (b, h, dh, half))
-    _check_cache("v4", v4, q.device, (b, h, half, dh))
-    if dh % 4 or half % 4:
-        raise ValueError(f"kernel needs Dh and Tpad/2 divisible by 4 (Dh={dh}, Tpad/2={half})")
-    if not 1 <= valid_len <= 2 * half:
-        raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
-    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _library().cross_attn_int4_launch(
-        q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), b, tq, h, dh, half,
-        valid_len, 1.0 / math.sqrt(dh), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"cross_attn_int4 kernel launch failed: CUDA error {rc}")
+    out = _launch_int4_stacked("cross_attention_int4", q, k4[None], v4[None], 0, valid_len)
     cross_attention_int4.launches += 1
     return out
 

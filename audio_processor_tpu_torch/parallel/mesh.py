@@ -1,0 +1,121 @@
+"""The (data, model) mesh on ``torch.distributed``: one process per rank.
+
+The port of the JAX package's ``parallel/mesh.py``.  JAX builds one
+``Mesh`` over every device from a single controller; here every rank is a
+process of its own (the SPMD idiom of ``torchrun``) and holds a ``Mesh``
+that says where it sits:
+
+  * "data"  -- each slab's 30 s windows are split over the data ranks;
+  * "model" -- attention heads and the MLP hidden units are split over the
+               model ranks, Megatron-style (``parallel/sharding.py``).
+
+Ranks are laid out as JAX lays out its device grid: rank = data_rank * tp
++ model_rank, so a model group is tp consecutive ranks.  Without an
+initialised process group the mesh is 1x1 and every collective is the
+identity, so every code path stays mesh-aware without special cases.
+
+The two collectives the model needs live here, and nothing else in the
+port calls ``torch.distributed``: ``all_reduce`` over the model group (the
+row-parallel products) and ``all_gather`` over the data group (each data
+rank's decode results).  Both take CUDA tensors under NCCL and under gloo
+(which lets several ranks share one card).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from ..runtime.device import resolve_device
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a (data, model) mesh."""
+
+    dp: int
+    tp: int
+    data_rank: int
+    model_rank: int
+    device: torch.device
+    model_group: Any = None  # process group of this rank's model axis (tp > 1)
+    data_group: Any = None  # process group of this rank's data axis (dp > 1)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {DATA_AXIS: self.dp, MODEL_AXIS: self.tp}
+
+    def local_rows(self, n: int) -> slice:
+        """This data rank's rows of an n-row batch (n divisible by dp)."""
+        if n % self.dp:
+            raise ValueError(f"a batch of {n} does not split over {self.dp} data ranks")
+        per = n // self.dp
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+
+def make_mesh(model_parallel: int = 1, device=None) -> Mesh:
+    """The (data, model) mesh over every rank of the default process group.
+
+    model_parallel must divide the world size; the rest is data parallel.
+    With no process group this is the 1x1 mesh.  Every rank must call it
+    (the groups are made collectively).  ``device``: this rank's device,
+    by default its card (``resolve_device``).
+    """
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} must divide {world} ranks")
+    tp, dp = model_parallel, world // model_parallel
+    model_group = data_group = None
+    # new_group is collective: every rank makes every group, in one order
+    if tp > 1:
+        for d in range(dp):
+            g = dist.new_group([d * tp + m for m in range(tp)])
+            if rank // tp == d:
+                model_group = g
+    if dp > 1:
+        for m in range(tp):
+            g = dist.new_group([d * tp + m for d in range(dp)])
+            if rank % tp == m:
+                data_group = g
+    return Mesh(dp, tp, rank // tp, rank % tp, resolve_device(device), model_group, data_group)
+
+
+def split_bounds(units: int, mesh: Mesh | None) -> tuple[int, int]:
+    """This model rank's contiguous run [lo, hi) of ``units`` equal blocks
+    (heads, hidden units): equal runs when tp divides units, whole blocks
+    either way; all of them when tp == 1."""
+    if mesh is None or mesh.tp == 1:
+        return 0, units
+    return mesh.model_rank * units // mesh.tp, (mesh.model_rank + 1) * units // mesh.tp
+
+
+def round_up_batch(n: int, mesh: Mesh | None) -> int:
+    """Smallest batch >= n that divides evenly over the data axis."""
+    d = 1 if mesh is None else mesh.dp
+    return int(math.ceil(n / d) * d)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Sum of x over the model axis (in place; x itself when tp == 1)."""
+    if mesh is None or mesh.tp == 1:
+        return x
+    dist.all_reduce(x, group=mesh.model_group)
+    return x
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """x of every data rank, concatenated along axis 0 in data-rank order
+    (x itself when dp == 1).  Every data rank passes the same shape."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.dp)]
+    dist.all_gather(parts, x, group=mesh.data_group)
+    return torch.cat(parts, dim=0)

@@ -9,10 +9,19 @@ over the int4 cross-KV cache by default, or beam search, prompted by
 ``initial_prompt``, continued from a ``prefix``, or conditioned on the
 previous windows' text in window groups.  Option defaults are the JAX
 package's.  Options that belong to later slices of the port raise
-NotImplementedError at construction.
+NotImplementedError at construction.  ``transcribe_batch`` packs the
+windows of several recordings into shared slabs.
 
 Slabs run one after another: PyTorch queues the card's work
 asynchronously, and the decode loop reads back one flag per token.
+
+Under a (data, model) mesh (``parallel/mesh.py``; one process per rank)
+every rank holds its shard of the parameters (``parallel/sharding.py``)
+and cuts the same slabs, each rounded to a multiple of the data axis.  A
+data rank frontends, encodes and decodes its rows of a slab; the decode
+results are all-gathered over the data axis, and every rank then runs the
+same host logic (retry ladder, no-speech gate, seek repair, segments) and
+returns the same result.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from ..models.whisper.tokenizer import (
 )
 from ..ops import frontend
 from ..ops.kernels.log_mel import log_mel
+from ..parallel import mesh as mesh_lib
 from ..runtime.device import resolve_device
 from ..utils import timestamps as timestamps_lib
 from ..utils.timestamps import TimeMap
@@ -55,7 +65,6 @@ DEFAULT_TEMPERATURE_LADDER = (0.2, 0.4, 0.6, 0.8, 1.0)
 _LATER_SLICE_OPTIONS = {
     "word_timestamps": False,
     "hallucination_silence_threshold": None,
-    "mesh": None,
     "quantize_self_kv": False,
 }
 
@@ -79,7 +88,9 @@ class Transcriber:
     """Holds params for one Whisper variant on one device.
 
     ``device=None`` runs on the card and raises without one; pass
-    ``device="cpu"`` for the plain PyTorch path.
+    ``device="cpu"`` for the plain PyTorch path.  With ``mesh`` (a
+    ``parallel.mesh.Mesh``; every rank builds its own Transcriber with the
+    same options and whole params) the device is the mesh's.
     """
 
     params: Any
@@ -140,10 +151,11 @@ class Transcriber:
     condition_on_previous_text: bool = False
     condition_group_size: int = 8
     condition_ctx_tokens: int = 48
+    # parallel.mesh.Mesh: serve on a (data, model) mesh, one process a rank
+    mesh: Any = None
     # later-slice options (must stay at their "off" value here)
     word_timestamps: bool = False
     hallucination_silence_threshold: float | None = None
-    mesh: Any = None
     quantize_self_kv: bool = False
 
     def __post_init__(self):
@@ -157,7 +169,12 @@ class Transcriber:
             raise ValueError(f"task must be transcribe|translate, got {self.task!r}")
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {self.temperature}")
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+        elif self.device is None or resolve_device(self.device) == self.mesh.device:
+            self.device = self.mesh.device
+        else:
+            raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
         self._max_initial_ts_index = (
             None if self.max_initial_timestamp is None
             else int(round(self.max_initial_timestamp / 0.02))
@@ -181,11 +198,30 @@ class Transcriber:
             wd = None if self.compute_dtype == "float32" else self.compute_dtype
         target = getattr(torch, wd) if wd is not None else None
         dev = self.device
-        self.params = model_lib.map_params(
-            lambda t: t.to(dev, target)
-            if target is not None and t.dtype == torch.float32 else t.to(dev),
-            self.params,
-        )
+        tp = 1 if self.mesh is None else self.mesh.tp
+
+        def cast(t):
+            if target is not None and t.dtype == torch.float32:
+                t = t.to(target)
+            return t.to(dev) if tp == 1 else t  # shard_params moves the slices
+
+        self.params = model_lib.map_params(cast, self.params)
+        # tensor-parallel serving: after the storage-dtype cast, each rank
+        # keeps its slice of the params (Megatron specs, parallel/sharding)
+        if tp > 1:
+            from ..parallel import sharding as sharding_lib
+
+            if tp > min(self.cfg.n_audio_head, self.cfg.n_text_head):
+                raise ValueError(f"tp={tp} exceeds the model's heads")
+            self.params = sharding_lib.shard_params(self.params, self.mesh, self.cfg)
+            if self.cross_kv_bits == 4 and self.cfg.n_text_head % tp:
+                # kernel #5 needs the heads split evenly
+                logger.info(
+                    "model-parallel mesh: %d heads do not shard over tp=%d — "
+                    "falling back to the plain int8 cross-KV path",
+                    self.cfg.n_text_head, tp,
+                )
+                self.cross_kv_bits = 8
         # per-call detected language, thread-local: a server may share one
         # Transcriber across job threads
         self._lang_tls = threading.local()
@@ -257,6 +293,12 @@ class Transcriber:
 
     # -- factories -------------------------------------------------------------
 
+    @staticmethod
+    def _init_device(device, mesh) -> torch.device:
+        """Where a factory makes the params: the mesh's device, else
+        ``device`` resolved."""
+        return mesh.device if mesh is not None and device is None else resolve_device(device)
+
     @classmethod
     def random_init(
         cls, name: str = "tiny", seed: int = 0, device=None, **kw
@@ -264,7 +306,7 @@ class Transcriber:
         """Random-weight instance (tests and benches).  The fallback ladder
         is off by default: random-weight output always fails the gate."""
         kw.setdefault("enable_fallback", False)
-        dev = resolve_device(device)
+        dev = cls._init_device(device, kw.get("mesh"))
         cfg = get_config(name)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -282,7 +324,7 @@ class Transcriber:
         from ..models.whisper import convert
         from ..models.whisper.tokenizer import load_tokenizer_file
 
-        dev = resolve_device(device)
+        dev = cls._init_device(device, kw.get("mesh"))
         params, cfg = convert.load_params(path, dev)
         if tokenizer is None:
             tok_path = tokenizer_path or os.environ.get("APTPU_TOKENIZER_PATH")
@@ -340,16 +382,54 @@ class Transcriber:
         mel = log_mel(audio, n_mels=self.cfg.n_mels)
         return model_lib.encode(
             self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype),
-            fused_attn=self.use_pallas_encoder_attn,
+            fused_attn=self.use_pallas_encoder_attn, mesh=self.mesh,
         )
 
-    def _chunk_slab(self, audio: np.ndarray, chunk_ids: list[int], bucket: int) -> torch.Tensor:
-        """int16 (bucket, CHUNK_SAMPLES) slab of the given chunks, on the device."""
+    # -- the data axis: a slab's rows split over the data ranks ----------------
+
+    @property
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
+
+    def _round(self, n: int) -> int:
+        """A slab size rounded up to a multiple of the data axis."""
+        return mesh_lib.round_up_batch(n, self.mesh)
+
+    def _local(self, x):
+        """This data rank's rows of a whole slab's host array."""
+        return x if self.mesh is None else x[self.mesh.local_rows(len(x))]
+
+    def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole slab's tensor from each data rank's rows."""
+        return mesh_lib.all_gather(x, self.mesh)
+
+    def _gather_result(self, result):
+        """A decode of this rank's rows -> the whole slab's DecodeResult."""
+        if self._dp == 1:
+            return result
+        return decode_lib.DecodeResult(*(self._all_rows(t) for t in result))
+
+    def _take_rows(self, states: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+        """This rank's rows of the slab ``whole[idx]``, where ``states`` are
+        this rank's rows of ``whole`` (retries re-batch rows across ranks)."""
+        whole = self._all_rows(states)
+        return whole[torch.from_numpy(np.asarray(self._local(idx))).to(whole.device)]
+
+    def _chunk_slab_pairs(
+        self, audios: list[np.ndarray], pairs: list[tuple[int, int]], bucket: int,
+    ) -> torch.Tensor:
+        """This data rank's rows of an int16 (bucket, CHUNK_SAMPLES) slab, on
+        the device; each pair is (audio index, chunk index), so the rows may
+        come from several recordings (cross-request batching)."""
         arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
-        for j, ci in enumerate(chunk_ids):
-            piece = audio[ci * CHUNK_SAMPLES : (ci + 1) * CHUNK_SAMPLES]
+        for j, (fi, ci) in enumerate(pairs):
+            piece = audios[fi][ci * CHUNK_SAMPLES : (ci + 1) * CHUNK_SAMPLES]
             arr[j, : len(piece)] = _f32_to_i16(piece)
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(self._local(arr))).to(self.device)
+
+    def _chunk_slab(self, audio: np.ndarray, chunk_ids: list[int], bucket: int) -> torch.Tensor:
+        """This data rank's rows of the int16 slab of one recording's chunks."""
+        return self._chunk_slab_pairs([audio], [(0, ci) for ci in chunk_ids], bucket)
 
     def warmup(self, n_chunks: int | None = None) -> float:
         """Transcribe n_chunks windows of a low tone (default: one slab) so
@@ -378,28 +458,32 @@ class Transcriber:
             dtype_name=self.compute_dtype,
             quantize_cross_kv=self.quantize_cross_kv,
             kv_bits=self.cross_kv_bits,
+            mesh=self.mesh,
         )
 
     def _beam_decode(self, audio_states, sot_seq, rows=None, lens=None):
         """One beam_decode call (plain, initial_prompt and conditioned
-        decodes share it)."""
-        return decode_lib.beam_decode(
+        decodes share it); rows/lens are the whole slab's."""
+        if rows is not None:
+            rows, lens = self._local(rows), self._local(lens)
+        return self._gather_result(decode_lib.beam_decode(
             self.params, self.cfg, audio_states, sot_sequence=sot_seq,
             beam_size=self.beam_size, patience=self.patience,
             length_penalty=self.length_penalty, prompt_tokens=rows, prompt_lens=lens,
             **self._decode_kw(),
-        )
+        ))
 
     def _prompted_decode(self, audio_states, sot_seq, rows, lens, temperature, seed):
-        """Prompt rows (build_prompt_rows) decoded by beam search at T=0
-        with beam_size > 0, else by prompted greedy/sampling decode."""
+        """Prompt rows (build_prompt_rows, the whole slab's) decoded by beam
+        search at T=0 with beam_size > 0, else by prompted greedy/sampling
+        decode."""
         if self.beam_size > 0 and temperature == 0:
             return self._beam_decode(audio_states, sot_seq, rows, lens)
-        return decode_lib.prompted_greedy_decode(
-            self.params, self.cfg, audio_states, rows, lens, sot_len=len(sot_seq),
-            temperature=temperature, rng_seed=seed, best_of=self.best_of,
-            **self._decode_kw(),
-        )
+        return self._gather_result(decode_lib.prompted_greedy_decode(
+            self.params, self.cfg, audio_states, self._local(rows), self._local(lens),
+            sot_len=len(sot_seq), temperature=temperature, rng_seed=seed,
+            best_of=self.best_of, **self._decode_kw(),
+        ))
 
     def _carry_hists(self, hists: list[list[int]]) -> list[list[int]]:
         """carry_initial_prompt under conditioning: prepend the initial
@@ -416,8 +500,9 @@ class Transcriber:
         self, audio_states, temperature: float | None = None, seed: int = 0,
         first_row_prompt: bool = False,
     ):
-        """One slab's decode.  first_row_prompt: row 0 holds the recording's
-        first window, which the initial_prompt prompts; with
+        """One slab's decode of this rank's rows ``audio_states``; returns
+        the whole slab's result.  first_row_prompt: row 0 holds the
+        recording's first window, which the initial_prompt prompts; with
         carry_initial_prompt every row is prompted.  Unprompted rows decode
         exactly as plain greedy decode.  temperature=None means the base
         temperature."""
@@ -427,17 +512,17 @@ class Transcriber:
         sot_seq = self._sot_seq(lang)
         ipt = self._initial_prompt_tokens
         if ipt and (first_row_prompt or self.carry_initial_prompt):
-            b = audio_states.shape[0]
+            b = audio_states.shape[0] * self._dp
             per_row = [ipt] * b if self.carry_initial_prompt else [ipt] + [[]] * (b - 1)
             rows, lens = decode_lib.build_prompt_rows(per_row, sot_seq, self.special, len(ipt))
             return self._prompted_decode(audio_states, sot_seq, rows, lens, temperature, seed)
         if self.beam_size > 0 and temperature == 0:
             return self._beam_decode(audio_states, sot_seq)
-        return decode_lib.greedy_decode(
+        return self._gather_result(decode_lib.greedy_decode(
             self.params, self.cfg, audio_states, sot_sequence=sot_seq,
             temperature=temperature, rng_seed=seed, best_of=self.best_of,
             **self._decode_kw(),
-        )
+        ))
 
     def _failed_rows(self, result, tokens: np.ndarray, n_real: int) -> np.ndarray:
         """Quality gate per chunk: low avg logprob or repetitive output."""
@@ -517,7 +602,8 @@ class Transcriber:
         """Compacted temperature-ladder retries (openai's
         decode_with_fallback), the one loop of the plain and the conditioned
         paths: only the failed rows re-decode, padded to a power-of-two
-        bucket, through ``redecode(sub_states, part, temp, lo)``; ``tokens``
+        bucket (rounded to the data axis), through
+        ``redecode(sub_states, part, temp, lo)``; ``tokens``
         and ``meta`` update in place.  Beam rows retry by sampling, as
         openai's ladder does."""
         failed = self._failed_rows(result, tokens, n_real)
@@ -532,10 +618,10 @@ class Transcriber:
             failed[:] = False
             for lo in range(0, len(idx), retry_cap):
                 part = idx[lo : lo + retry_cap]
-                bucket = min(_bucket(len(part)), retry_cap)
+                bucket = self._round(min(_bucket(len(part)), retry_cap))
                 pad_idx = np.zeros(bucket, np.int64)
                 pad_idx[: len(part)] = part
-                sub_states = states[torch.from_numpy(pad_idx).to(states.device)]
+                sub_states = self._take_rows(states, pad_idx)
                 retry = redecode(sub_states, part, temp, lo)
                 retry_tokens = retry.tokens.cpu().numpy()[: len(part)].astype(np.int32)
                 tokens[part] = retry_tokens
@@ -577,13 +663,15 @@ class Transcriber:
         cap = self._slab_cap
         for lo in range(0, len(bounds), cap):
             batch = bounds[lo : lo + cap]
-            bucket = min(_bucket(len(batch)), cap)
+            bucket = self._round(min(_bucket(len(batch)), cap))
             arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
             for j, (i, c) in enumerate(batch):
                 s0 = i * CHUNK_SAMPLES + int(round(c * 16_000))
                 piece = audio[s0 : s0 + CHUNK_SAMPLES]
                 arr[j, : len(piece)] = _f32_to_i16(piece)
-            states = self._frontend_encode(torch.from_numpy(arr).to(self.device))
+            states = self._frontend_encode(
+                torch.from_numpy(np.ascontiguousarray(self._local(arr))).to(self.device)
+            )
             ptoks, pmeta = self._collect_slab(self._run_decode(states), states, len(batch))
             patch_rows.append(ptoks)
             patch_metas.append(pmeta)
@@ -659,9 +747,15 @@ class Transcriber:
 
     def _detect_language_voting(self, audio: np.ndarray, audio_states, chunk_ids: list[int]) -> int:
         """Detect the language by voting over the first speech-bearing
-        chunks rather than trusting chunk 0 alone."""
+        chunks rather than trusting chunk 0 alone.  ``audio_states``: this
+        rank's rows of the slab; the k voter rows are gathered to every
+        data rank."""
         k = self._voting_k(len(chunk_ids))
-        _, probs = decode_lib.detect_language(self.params, self.cfg, audio_states[:k])
+        # each data rank's first min(k, rows) rows, gathered: the slab's
+        # first k rows lead the result whether they sit on one rank or span
+        # several
+        voters = self._all_rows(audio_states[: min(k, audio_states.shape[0])])[:k]
+        _, probs = decode_lib.detect_language(self.params, self.cfg, voters, mesh=self.mesh)
         return self._vote_language(audio, chunk_ids[:k], probs.cpu().numpy())
 
     def _language_code(self) -> str | None:
@@ -708,7 +802,7 @@ class Transcriber:
             chunk_ids = [g * g_size + r for g in range(n_groups) if g * g_size + r < n_chunks]
             if not chunk_ids:
                 break
-            bucket = min(_bucket(len(chunk_ids)), self._slab_cap)
+            bucket = self._round(min(_bucket(len(chunk_ids)), self._slab_cap))
             for lo in range(0, len(chunk_ids), bucket):
                 ids = chunk_ids[lo : lo + bucket]
                 states = self._frontend_encode(self._chunk_slab(audio, ids, bucket))
@@ -722,7 +816,7 @@ class Transcriber:
                 hists = [histories[ci // g_size] for ci in ids]
 
                 def run_prompted(sub_states, sub_hists, temp, seed):
-                    n_pad = sub_states.shape[0] - len(sub_hists)
+                    n_pad = sub_states.shape[0] * self._dp - len(sub_hists)
                     rows, lens = decode_lib.build_prompt_rows(
                         self._carry_hists(sub_hists) + [[]] * n_pad, sot_seq,
                         self.special, max_ctx,
@@ -853,7 +947,7 @@ class Transcriber:
                 tokens, n_chunks, duration_s, time_map, t0, progress,
                 audio=audio, patches=patches, chunk_meta=chunk_meta,
             )
-        slab = min(_bucket(n_chunks), self._slab_cap)
+        slab = self._round(min(_bucket(n_chunks), self._slab_cap))
         n_slabs = math.ceil(n_chunks / slab)
         content_s = len(audio) / 16_000.0
         token_rows: list[np.ndarray] = []
@@ -951,7 +1045,197 @@ class Transcriber:
             out["language"] = lang_code
         return out
 
-    def transcribe_batch(self, audios, **kw):
-        raise NotImplementedError(
-            "transcribe_batch (cross-request batching) is not ported yet"
+    # -- cross-request batched transcription ------------------------------------
+
+    def _detect_languages_batch(
+        self, audios: list[np.ndarray], n_chunks_per: list[int]
+    ) -> tuple[list[int], dict[tuple[int, int], tuple[torch.Tensor, int]]]:
+        """Per-file language detection for a batch of recordings in shared
+        encode + detect slabs: the voter chunks and the voting rule of
+        _detect_language_voting, one detect call per slab.
+
+        Returns (languages, state_bank): state_bank maps (file, chunk) ->
+        (this rank's rows of a slab's states, the chunk's row in the slab)
+        for every voter chunk, so the decode can reuse those encoder rows
+        (for 1-2 window clips the voter rows are the decode rows)."""
+        rows: list[tuple[int, int]] = []
+        spans: list[tuple[int, int]] = []  # (first row, k) per file
+        for fi, n in enumerate(n_chunks_per):
+            # the single-file path votes over its first decode slab
+            slab_f = self._round(min(_bucket(n), self._slab_cap))
+            k = self._voting_k(min(n, slab_f))
+            spans.append((len(rows), k))
+            rows += [(fi, ci) for ci in range(k)]
+        cap = self._slab_cap
+        prob_parts: list[np.ndarray] = []
+        state_bank: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+        for lo in range(0, len(rows), cap):
+            part = rows[lo : lo + cap]
+            bucket = self._round(min(_bucket(len(part)), cap))
+            padded = part + [part[-1]] * (bucket - len(part))
+            states = self._frontend_encode(self._chunk_slab_pairs(audios, padded, bucket))
+            _, probs = decode_lib.detect_language(self.params, self.cfg, states, mesh=self.mesh)
+            prob_parts.append(self._all_rows(probs).cpu().numpy()[: len(part)])
+            for j, pair in enumerate(part):
+                state_bank[pair] = (states, j)
+        all_probs = np.concatenate(prob_parts, axis=0)
+        return [
+            self._vote_language(audios[fi], list(range(k)), all_probs[lo : lo + k])
+            for fi, (lo, k) in enumerate(spans)
+        ], state_bank
+
+    @property
+    def supports_shared_slabs(self) -> bool:
+        """True when transcribe_batch packs several files into shared decode
+        slabs.  False when an option needs per-file decode state inside the
+        slab (rolling conditioning context, or a first-window-only
+        initial_prompt): transcribe_batch then transcribes file by file
+        (servers use this to skip coalescing such requests)."""
+        return not (
+            self.condition_on_previous_text
+            or (bool(self._initial_prompt_tokens) and not self.carry_initial_prompt)
         )
+
+    def _gather_state_rows(
+        self,
+        bank: dict[tuple[int, int], tuple[torch.Tensor, int]],
+        pairs: list[tuple[int, int]],
+        bucket: int,
+    ) -> torch.Tensor:
+        """This rank's rows of a (bucket, ...) encoder-states slab assembled
+        from banked rows (the encoder is row-independent, so they equal a
+        fresh encode), padded with the first row."""
+        uniq: list[torch.Tensor] = []
+        offsets: dict[int, int] = {}
+        rows: list[int] = []
+        for pair in pairs:
+            src, r = bank[pair]
+            if id(src) not in offsets:
+                offsets[id(src)] = sum(int(s.shape[0]) * self._dp for s in uniq)
+                uniq.append(src)
+            rows.append(offsets[id(src)] + r)
+        rows += [rows[0]] * (bucket - len(rows))
+        whole = torch.cat([self._all_rows(s) for s in uniq], dim=0)
+        return whole[torch.from_numpy(np.asarray(self._local(rows))).to(whole.device)]
+
+    def transcribe_batch(
+        self,
+        audios: "list[np.ndarray | str | os.PathLike]",
+        *,
+        sample_rate: int = 16_000,
+        remove_silence: bool = True,
+        on_segment: Callable[[int, dict], None] | None = None,
+    ) -> list[dict]:
+        """Transcribe several independent recordings in shared decode slabs.
+
+        Cross-request batching for many short files: the 30 s windows of
+        every file pack into the slabs the single-file path uses, so N short
+        uploads cost about one slab decode instead of N under-filled ones.
+        Each file keeps its own silence-trim TimeMap, voted language, seek
+        repair and finalize, and a window's decode depends only on its own
+        audio, so each result is what transcribe() returns for that file
+        (rtf_x is the file's share of the batch's wall time).  Files whose
+        languages differ decode in per-language sub-batches.  on_segment is
+        called as on_segment(file_index, segment) as each slab's decode
+        lands.  Options that need per-file decode state inside a slab
+        (supports_shared_slabs) fall back to one transcribe() per file.
+        """
+        t0 = time.perf_counter()
+        if not audios:
+            return []
+        if not self.supports_shared_slabs:
+            return [
+                self.transcribe(
+                    a, sample_rate=sample_rate, remove_silence=remove_silence,
+                    on_segment=(
+                        (lambda seg, fi=fi: on_segment(fi, seg))
+                        if on_segment is not None else None
+                    ),
+                )
+                for fi, a in enumerate(audios)
+            ]
+
+        # per-file preprocessing: the transcribe() head
+        trimmed: list[np.ndarray] = []
+        time_maps: list[TimeMap] = []
+        durations_s: list[float] = []
+        n_chunks_per: list[int] = []
+        for audio in audios:
+            audio, sr = ingest.load_if_path(audio, sample_rate)
+            if sr != 16_000:
+                raise NotImplementedError(
+                    f"sample_rate={sr}: resampling is not ported yet; pass 16 kHz "
+                    "audio or file paths (decoded at 16 kHz)"
+                )
+            audio = np.asarray(audio, np.float32)
+            duration_s = len(audio) / sr
+            if remove_silence and len(audio) > 2 * 16_000:
+                audio, intervals = frontend.trim_silence_host(audio)
+                time_map = TimeMap(intervals)
+            else:
+                time_map = TimeMap.identity(duration_s)
+            trimmed.append(audio)
+            time_maps.append(time_map)
+            durations_s.append(duration_s)
+            n_chunks_per.append(max(1, math.ceil(len(audio) / CHUNK_SAMPLES)))
+
+        state_bank: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+        langs: list[int | None] = [None] * len(trimmed)
+        if self.auto_language and self.language is None and self.cfg.is_multilingual:
+            langs, state_bank = self._detect_languages_batch(trimmed, n_chunks_per)
+
+        # windows grouped by language (None: pinned or not multilingual;
+        # _run_decode then takes self.language)
+        pairs_by_lang: dict[int | None, list[tuple[int, int]]] = {}
+        for fi, n in enumerate(n_chunks_per):
+            pairs_by_lang.setdefault(langs[fi], []).extend((fi, ci) for ci in range(n))
+
+        rows_by_file: list[list[np.ndarray | None]] = [[None] * n for n in n_chunks_per]
+        meta_keys = ("avg_logprob", "no_speech_prob", "temperature", "compression_ratio")
+        meta_by_file = [{k: np.zeros(n, np.float64) for k in meta_keys} for n in n_chunks_per]
+        for lang, pairs in pairs_by_lang.items():
+            self._active_language = lang
+            slab = self._round(min(_bucket(len(pairs)), self._slab_cap))
+            for lo in range(0, len(pairs), slab):
+                batch_pairs = pairs[lo : lo + slab]
+                if state_bank and all(p in state_bank for p in batch_pairs):
+                    # every row was encoded by the detection pass
+                    audio_states = self._gather_state_rows(state_bank, batch_pairs, slab)
+                else:
+                    audio_states = self._frontend_encode(
+                        self._chunk_slab_pairs(trimmed, batch_pairs, slab)
+                    )
+                toks, meta = self._collect_slab(
+                    self._run_decode(audio_states), audio_states, len(batch_pairs),
+                )
+                del audio_states
+                for j, (fi, ci) in enumerate(batch_pairs):
+                    rows_by_file[fi][ci] = toks[j]
+                    for k in meta_keys:
+                        meta_by_file[fi][k][ci] = meta[k][j]
+                if on_segment is not None:
+                    by_file: dict[int, list[int]] = {}
+                    for j, (fi, _) in enumerate(batch_pairs):
+                        by_file.setdefault(fi, []).append(j)
+                    for fi, js in by_file.items():
+                        self._emit_live_segments(
+                            lambda seg, fi=fi: on_segment(fi, seg), toks[js],
+                            np.asarray([batch_pairs[j][1] for j in js], np.float64),
+                            len(trimmed[fi]) / 16_000.0, time_maps[fi],
+                        )
+
+        # per-file tail: seek repair and finalize, as for a single file
+        results: list[dict] = []
+        for fi, rows in enumerate(rows_by_file):
+            self._active_language = langs[fi]
+            tokens = np.full(
+                (len(rows), max(len(r) for r in rows)), self.special.eot, np.int32
+            )
+            for ci, r in enumerate(rows):
+                tokens[ci, : len(r)] = r
+            tokens, patches = self._apply_seek_repair(tokens, n_chunks_per[fi], trimmed[fi])
+            results.append(self._finalize(
+                tokens, n_chunks_per[fi], durations_s[fi], time_maps[fi], t0, None,
+                audio=trimmed[fi], patches=patches, chunk_meta=meta_by_file[fi],
+            ))
+        return results

@@ -10,14 +10,21 @@ import torch
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises RuntimeError when there is no card);
-    an explicit device passes through, after the same check for CUDA."""
+    """``None`` -> the current card (raises RuntimeError when there is no
+    card); an explicit device passes through, after the same check for
+    CUDA.  A bare "cuda" gets the current card's index, so under one
+    process per rank it names the card ``torch.cuda.set_device`` chose
+    (``parallel.multihost.initialize``), and compares equal to the
+    devices of the tensors made on it."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port's plain PyTorch path on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port's plain PyTorch path on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     set_full_fp32()
     return dev
 

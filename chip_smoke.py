@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tp-only   # sharded serving alone, e.g. on a card per rank
 
 Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc`` (one
 nvcc per source, all at once), holds each against its plain PyTorch version
@@ -13,19 +14,29 @@ every window) through the fused encoder, and runs the bench workload
 (log-mel + encode + 96-token decode, bf16, EOT suppressed) in its
 variants: int4 greedy at batch 32 and at the default slab of 128, the
 fused encoder at 128, the int8 kernel decode at 32 and beam 5 at 32.
+Sharded serving: kernel #5 on each emulated model rank's shard against
+kernel B's full-head output and its plain version, then worlds of 2
+(dp1 x tp2) and 4 (dp2 x tp2) ranks, one process each (NCCL with a card
+per rank, else gloo with the ranks sharing the card), each holding the
+small config's tokens to the single-card decode and transcribing 4 min at
+whisper-small width.
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result line, when there is no card, when the port is not beside
-this script, or when any phase fails.
+this script, or when any phase or any rank fails.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
+import queue
+import socket
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -92,14 +103,20 @@ def kernel_rows(fn) -> list[tuple[float, str, int]]:
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, iters: int) -> float | str:
+def device_ms(fn, iters: int) -> float:
     """Mean device time per call of fn's kernels: for calls shorter than
-    their host launch overhead, where CUDA events would time the host."""
+    their host launch overhead, where CUDA events would time the host.
+    Now and then a profiler session records no kernel at all (seen on the
+    card): up to three sessions are tried, then the call is timed by CUDA
+    events, with a note on stderr, so that the kernel line keeps a number."""
     fn()
-    rows = kernel_rows(lambda: [fn() for _ in range(iters)])
-    if not rows:
-        return "not measured (the profiler recorded no kernel time)"
-    return sum(r[0] for r in rows) / iters
+    for _ in range(3):
+        rows = kernel_rows(lambda: [fn() for _ in range(iters)])
+        if rows:
+            return sum(r[0] for r in rows) / iters
+    print("chip_smoke: the profiler recorded no kernel time in 3 sessions; "
+          "timing by CUDA events", file=sys.stderr, flush=True)
+    return time_ms(fn, iters)
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -423,6 +440,15 @@ def phase_cross_attn_int4_single(dev, kernels) -> dict:
             "bound_by": by}
 
 
+def check_config():
+    """The small reference config of the check phases (64-wide heads)."""
+    from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
+
+    return WhisperConfig(name="check", n_mels=80, n_audio_ctx=1500, n_audio_state=128,
+                         n_audio_head=2, n_audio_layer=2, n_vocab=1024, n_text_ctx=64,
+                         n_text_state=128, n_text_head=2, n_text_layer=2)
+
+
 def phase_check(dev) -> dict:
     """Small-config reference check of the whole chain on full 30 s
     windows, the card's kernels against the CPU's plain path, float32:
@@ -431,12 +457,9 @@ def phase_check(dev) -> dict:
     greedy with rows of mixed prompt lengths, one of them empty.  The
     tokens must be equal in every case."""
     from audio_processor_tpu_torch.models.whisper import decode, model
-    from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 
-    cfg = WhisperConfig(name="check", n_mels=80, n_audio_ctx=1500, n_audio_state=128,
-                        n_audio_head=2, n_audio_layer=2, n_vocab=1024, n_text_ctx=64,
-                        n_text_state=128, n_text_head=2, n_text_layer=2)  # 64-wide heads
+    cfg = check_config()
     params = model.init_params(cfg, torch.Generator().manual_seed(2))
     st = decode.SpecialTokens.for_config(cfg)
     sot = tuple(st.sot_sequence())
@@ -476,6 +499,295 @@ def phase_check(dev) -> dict:
             "tokens_equal_cpu": same, "greedy_tokens_equal_cpu": same["greedy_int4"]}
 
 
+def phase_cross_attn_tp(dev, kernels) -> dict:
+    """Kernel #5 at whisper-small's widths, B=128, Tq=1, for tp 2 and 4: each
+    emulated model rank's contiguous slice of q and of the stacked cache
+    (its heads) goes through the wrapper.  Concatenated along the heads,
+    the ranks' outputs must equal kernel B's full-head output bit for bit
+    (both run one CTA per (head, row)), and each rank's must lie within
+    5e-4 of the plain version.  Timed per rank at tp=2, the transcribe_tp
+    meshes' split, with SDPA on the rank's dequantized bf16 K/V beside."""
+    from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+    from audio_processor_tpu_torch.parallel.mesh import Mesh, split_bounds
+
+    n_layers, b, h, dh, tpad, valid = 12, 128, 12, 64, 1536, 1500
+    g = torch.Generator(device=dev).manual_seed(11)
+    k4 = torch.empty((n_layers, b, h, dh, tpad // 2), dtype=torch.int8, device=dev)
+    v4 = torch.empty((n_layers, b, h, tpad // 2, dh), dtype=torch.int8, device=dev)
+    for l in range(n_layers):
+        k8 = torch.randint(-7, 8, (b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+        v8 = torch.randint(-7, 8, (b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+        k4[l], v4[l] = da.pack_int4_time(k8, v8)
+    del k8, v8
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.1
+    out = {"phase": "cross_attn_int4_tp", "shape": [n_layers, b, h, dh, tpad], "valid_len": valid}
+    worst, rank_tensors = 0.0, {}
+
+    def rank_shard(tp, r, rows=slice(None)):  # what model rank r holds: its heads, contiguous
+        mesh = Mesh(dp=1, tp=tp, data_rank=0, model_rank=r, device=dev)
+        lo, hi = split_bounds(h, mesh)
+        return (mesh, q[rows, :, lo:hi].contiguous(), k4[:, rows, lo:hi].contiguous(),
+                v4[:, rows, lo:hi].contiguous())
+
+    def call(shard, layer):
+        mesh, ql, kl, vl = shard
+        return da.cross_attention_int4_stacked_tp(mesh, ql, kl, vl, layer, valid_len=valid,
+                                                  n_head=h)
+
+    for tp in (2, 4):
+        shards = [rank_shard(tp, r) for r in range(tp)]
+        diffs = []
+        for l in (0, n_layers - 1):
+            full = da.cross_attention_int4_stacked(q, k4, v4, l, valid_len=valid)
+            parts = [call(sh, l) for sh in shards]
+            torch.cuda.synchronize()
+            for (_, ql, kl, vl), got in zip(shards, parts):
+                err = (got - da.cross_attention_int4_reference(ql, kl[l], vl[l], valid_len=valid)
+                       ).abs().max().item()
+                if not err <= 5e-4:
+                    fail(f"cross_attn_int4_tp tp={tp} layer={l}: max abs err {err} > 5e-4")
+                worst = max(worst, err)
+            diffs.append((torch.cat(parts, dim=2) - full).abs().max().item())
+        out[f"concat_vs_full_max_abs_diff_tp{tp}"] = max(diffs)
+        if max(diffs) != 0.0:
+            fail(f"cross_attn_int4_tp tp={tp}: rank outputs differ from kernel B's by {max(diffs)}")
+        rank_tensors[tp] = shards[0]
+        del shards
+    out["max_abs_err"] = worst
+
+    def needed(rows, heads):  # a rank's bytes (valid K/V nibbles, q in, out) and FLOPs
+        return (2 * rows * heads * dh * math.ceil(valid / 2) + 2 * 4 * rows * heads * dh,
+                4 * rows * heads * dh * valid)
+
+    for tp, shard in rank_tensors.items():
+        layer_iter = iter(range(10**9))
+        ms = time_ms(lambda: call(shard, next(layer_iter) % n_layers), iters=48)
+        out[f"kernel_ms_tp{tp}"] = ms
+        out[f"bound_ms_tp{tp}"], by = bound_ms(*needed(b, h // tp))
+        small = rank_shard(tp, 0, slice(0, 8))
+        out[f"kernel_ms_b8_tp{tp}"] = device_ms(lambda: call(small, 3), iters=48)
+        out[f"bound_ms_b8_tp{tp}"] = bound_ms(*needed(8, h // tp))[0]
+    _, ql, kl, vl = rank_tensors[2]
+    plain = time_ms(lambda: da.cross_attention_int4_reference(ql, kl[0], vl[0], valid_len=valid),
+                    iters=3)
+    lo, hi = da._unpack_nibbles_u(kl[0])
+    k_t = torch.stack([lo, hi], dim=-1).reshape(b, h // 2, dh, tpad)[..., :valid] - 8
+    lo, hi = da._unpack_nibbles_u(vl[0])
+    v_t = torch.stack([lo, hi], dim=-2).reshape(b, h // 2, tpad, dh)[:, :, :valid] - 8
+    lib = time_ms(_sdpa_on_dequantized(ql, k_t, v_t), iters=20)
+    out.update(plain_ms_tp2=plain, library_ms_tp2=lib, bound_by=by,
+               timed="per rank: Tq=1, B=128, H/tp heads, one layer per call")
+    kernels["cross_attn_int4_tp"] = dict(
+        name="cross_attn_int4_tp", route="cuda",
+        source="audio_processor_tpu_torch/csrc/cross_attn_int4.cu",
+        replaces="audio_processor_tpu/ops/pallas/decode_attention.py:471",
+        max_abs_err=worst, ms=out["kernel_ms_tp2"], plain_ms=plain,
+        bound_ms=out["bound_ms_tp2"], bound_by=by, library_ms=lib,
+        shape=f"per rank at tp=2: q ({b}, 1, {h // 2}, {dh}) f32 vs layer of K/V "
+              f"({n_layers}, {b}, {h // 2}, ., {tpad // 2}) int4x2",
+        ms_tp4=out["kernel_ms_tp4"], bound_ms_tp4=out["bound_ms_tp4"],
+        ms_b8=out["kernel_ms_b8_tp2"], bound_ms_b8=out["bound_ms_b8_tp2"],
+    )
+    return out
+
+
+def record_decodes(tr) -> list:
+    """Wrap ``tr._run_decode`` so that every decode's tokens (the whole
+    slab's, before the no-speech gate) are appended to the returned list."""
+    seen: list = []
+    run = tr._run_decode
+
+    def wrapped(*args, **kw):
+        res = run(*args, **kw)
+        seen.append(res.tokens.cpu().numpy())
+        return res
+
+    tr._run_decode = wrapped
+    return seen
+
+
+def check_segments(out: dict, audio_s: float, phase: str) -> None:
+    if not math.isclose(out["duration"], audio_s):
+        fail(f"{phase}: duration {out['duration']}")
+    for s in out["segments"]:
+        if not (0.0 <= s["start"] <= s["end"] <= audio_s + 1e-6 and np.isfinite(s["avg_logprob"])):
+            fail(f"{phase}: bad segment {s}")
+
+
+TP_AUDIO_S = 240.0
+
+
+def _check_decodes(cfg, params, audio, mesh=None) -> dict:
+    """The check config's chain (kernel A -> encoder -> int4 greedy and
+    beam 3) on ``audio`` (this data rank's rows), float32; token arrays."""
+    from audio_processor_tpu_torch.models.whisper import decode, model
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    st = decode.SpecialTokens.for_config(cfg)
+    kw = dict(sot_sequence=tuple(st.sot_sequence()), max_new_tokens=24, quantize_cross_kv=True,
+              kv_bits=4, mesh=mesh)
+    states = model.encode(params, cfg, log_mel(audio, 80), mesh=mesh)
+    return {"greedy_int4": decode.greedy_decode(params, cfg, states, **kw).tokens.cpu().numpy(),
+            "beam3_int4": decode.beam_decode(params, cfg, states, beam_size=3, **kw)
+            .tokens.cpu().numpy()}
+
+
+def _check_audio() -> torch.Tensor:
+    return torch.from_numpy(np.stack([speech_like(30.0, s) for s in (3, 4, 9, 12)]))
+
+
+def _tp_rank(rank, world, tp, port, backend, results, profile) -> None:
+    """One rank of a transcribe_tp world: (a) the check config on the mesh,
+    (b) whisper-small's default transcription on the mesh, cold then warm,
+    counting the warm run's kernel launches; with ``profile``, once more
+    with rank 0 under the profiler (every rank runs it: the collectives
+    need them all)."""
+    try:
+        import torch.distributed as dist
+
+        from audio_processor_tpu_torch.models.whisper import model
+        from audio_processor_tpu_torch.ops.kernels.decode_attention import (
+            cross_attention_int4_stacked,
+            cross_attention_int4_stacked_tp,
+        )
+        from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+        from audio_processor_tpu_torch.parallel import mesh as mesh_lib
+        from audio_processor_tpu_torch.parallel import multihost, sharding
+        from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+        multihost.initialize(f"127.0.0.1:{port}", world, rank, backend=backend)
+        mesh = mesh_lib.make_mesh(tp)
+        res = {"rank": rank, "device": str(mesh.device), "backend": dist.get_backend()}
+        cfg = check_config()
+        params = sharding.shard_params(
+            model.init_params(cfg, torch.Generator().manual_seed(2)), mesh, cfg)
+        audio = _check_audio()
+        rows = mesh.local_rows(audio.shape[0])
+        res["check"] = _check_decodes(cfg, params, audio[rows].to(mesh.device), mesh)
+        res["check_rows"] = (rows.start, rows.stop)
+
+        tr = Transcriber.random_init("small", mesh=mesh)  # bf16, int4 cross-KV, fallback off
+        seen = record_decodes(tr)
+        audio = speech_like(TP_AUDIO_S, 5)
+        cold = tr.transcribe(audio)
+        torch.cuda.synchronize()
+        counters = (log_mel, cross_attention_int4_stacked_tp, cross_attention_int4_stacked)
+        for c in counters:
+            c.launches = 0
+        seen.clear()
+        warm = tr.transcribe(audio)
+        torch.cuda.synchronize()
+        res["launches"] = {c.__name__: c.launches for c in counters}
+        res["cold_rtf_x"], res["warm_rtf_x"] = cold["rtf_x"], warm["rtf_x"]
+        res["warm"] = {k: v for k, v in warm.items() if k != "rtf_x"}
+        res["tokens"] = np.concatenate(seen)
+        if profile and rank == 0:
+            res["profile"] = profile_decode(lambda: tr.transcribe(audio),
+                                            1e3 * TP_AUDIO_S / warm["rtf_x"])
+        elif profile:
+            tr.transcribe(audio)
+        results.put((rank, True, res))
+        dist.destroy_process_group()
+    except BaseException:  # reported to the parent, which fails the run
+        results.put((rank, False, traceback.format_exc()[-3000:]))
+        raise
+
+
+def run_world(world: int, tp: int, timeout_s: float, profile: bool) -> tuple[list[dict], str]:
+    """Spawn ``world`` ranks of _tp_rank and collect their results.  A rank
+    that fails or exits early, or a world past ``timeout_s``, fails the
+    run; every process is stopped on the way out."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, args=(r, world, tp, port, backend, results, profile))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got: dict[int, dict] = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(got) < world:
+            if time.monotonic() > deadline:
+                fail(f"transcribe_tp world={world}: timed out after {timeout_s} s")
+            try:
+                rank, ok, value = results.get(timeout=5)
+            except queue.Empty:
+                dead = {i: p.exitcode for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in got}
+                if dead:
+                    fail(f"transcribe_tp world={world}: ranks exited {dead}")
+                continue
+            if not ok:
+                fail(f"transcribe_tp world={world}: rank {rank} failed:\n{value}")
+            got[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)], backend
+
+
+def phase_transcribe_tp(dev, single_tokens: np.ndarray) -> tuple[dict, int]:
+    """Sharded serving, one process a rank: worlds of 2 (dp1 x tp2) and 4
+    (dp2 x tp2).  Gates: (a) the check config's greedy and beam-3 tokens
+    equal the single-card decode's; (b) whisper-small, bf16, default
+    options, 4 min of speech-like audio: every rank returns the same
+    transcript and tokens, kernel #5 and log-mel launch on every rank and
+    kernel B never does, the schema holds.  Reports the share of decode
+    tokens equal to the single-card transcribe phase's, the warm RTFx and,
+    for dp2 x tp2, rank 0's kernel profile (a profiled run costs several
+    unprofiled ones, so the smaller world goes without).
+    Returns (summary, kernel #5's launches summed over the dp2 x tp2
+    ranks)."""
+    from audio_processor_tpu_torch.models.whisper import model
+
+    cfg = check_config()
+    params = model.map_params(lambda t: t.to(dev),
+                              model.init_params(cfg, torch.Generator().manual_seed(2)))
+    single = _check_decodes(cfg, params, _check_audio().to(dev))
+    out = {"phase": "transcribe_tp", "model": "small (random weights)", "audio_s": TP_AUDIO_S,
+           "windows": math.ceil(TP_AUDIO_S / 30.0)}
+    for world, tp in ((2, 2), (4, 2)):
+        t0 = time.perf_counter()
+        ranks, backend = run_world(world, tp, timeout_s=420.0, profile=world == 4)
+        name = f"dp{world // tp}xtp{tp}"
+        for r in ranks:
+            lo, hi = r["check_rows"]
+            for k, toks in r["check"].items():
+                if not np.array_equal(toks, single[k][lo:hi]):
+                    fail(f"transcribe_tp {name} rank {r['rank']}: {k} tokens differ from one card's")
+            check_segments(r["warm"], TP_AUDIO_S, f"transcribe_tp {name}")
+            if r["warm"] != ranks[0]["warm"] or not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+                fail(f"transcribe_tp {name}: rank {r['rank']}'s transcript differs from rank 0's")
+            launches = r["launches"]
+            if not (launches["cross_attention_int4_stacked_tp"] and launches["log_mel"]) \
+                    or launches["cross_attention_int4_stacked"]:
+                fail(f"transcribe_tp {name} rank {r['rank']}: launches {launches}")
+        tokens = ranks[0]["tokens"]
+        out[name] = {
+            "backend": backend, "devices": [r["device"] for r in ranks],
+            "seconds": time.perf_counter() - t0,
+            "check_tokens_equal_single_card": True,
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "cold_rtf_x": ranks[0]["cold_rtf_x"], "warm_rtf_x": ranks[0]["warm_rtf_x"],
+            "segments": len(ranks[0]["warm"]["segments"]),
+            "language": ranks[0]["warm"].get("language"),
+            "profile_rank0": ranks[0].get("profile", "not run for this world"),
+            "decode_tokens_equal_single_card_share": (
+                float(np.mean(tokens == single_tokens)) if tokens.shape == single_tokens.shape
+                else f"shapes differ: {tokens.shape} vs {single_tokens.shape}"),
+        }
+    kernel5 = sum(l["cross_attention_int4_stacked_tp"] for l in out["dp2xtp2"]["launches_per_rank"])
+    return out, kernel5
+
+
 def zero_counts(counters) -> None:
     for c in counters:
         c.launches = 0
@@ -496,21 +808,20 @@ def phase_transcribe(dev, counters, off_path=()) -> tuple[dict, object]:
     t0 = time.perf_counter()
     tr = Transcriber.random_init("small", device=dev)  # bf16, int4 cross-KV, fallback off
     init_s = time.perf_counter() - t0
-    audio = speech_like(240.0, 5)
+    seen = record_decodes(tr)
+    audio = speech_like(TP_AUDIO_S, 5)
     cold = tr.transcribe(audio)
     torch.cuda.synchronize()
     zero_counts([*counters, *off_path])
+    seen.clear()
     warm = tr.transcribe(audio)
     torch.cuda.synchronize()
     launches = read_counts(counters, off_path, "transcribe")
     for out in (cold, warm):
-        if not math.isclose(out["duration"], 240.0):
-            fail(f"transcribe: duration {out['duration']}")
-        for s in out["segments"]:
-            if not (0.0 <= s["start"] <= s["end"] <= 240.0 + 1e-6 and np.isfinite(s["avg_logprob"])):
-                fail(f"transcribe: bad segment {s}")
+        check_segments(out, TP_AUDIO_S, "transcribe")
+    tr.tokens = np.concatenate(seen)  # the warm run's decode, for transcribe_tp
     return {
-        "phase": "transcribe", "model": "small (random weights)", "audio_s": 240.0,
+        "phase": "transcribe", "model": "small (random weights)", "audio_s": TP_AUDIO_S,
         "windows": math.ceil(len(audio) / 480_000), "init_s": init_s,
         "cold_rtf_x": cold["rtf_x"], "warm_rtf_x": warm["rtf_x"],
         "segments": len(warm["segments"]), "language": warm.get("language"),
@@ -654,7 +965,12 @@ def profile_decode(fn, unprofiled_ms: float) -> dict | str:
     }
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run only transcribe_tp and the single-card transcription it is "
+                         "held to (on a machine with a card per rank: the NCCL worlds)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU", 2)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -664,6 +980,7 @@ def main() -> None:
         from audio_processor_tpu_torch.ops.kernels.decode_attention import (
             cross_attention_int4,
             cross_attention_int4_stacked,
+            cross_attention_int4_stacked_tp,
             cross_attention_int8,
         )
         from audio_processor_tpu_torch.ops.kernels.encoder_attention import fused_self_attention
@@ -683,17 +1000,28 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                     for k, v in logs.items()}})
+    if args.tp_only:
+        summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
+        emit(summary)
+        emit(phase_transcribe_tp(dev, tr.tokens)[0])
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     kernels: dict[str, dict] = {}
     emit(phase_log_mel(dev, kernels))
     emit(phase_cross_attn(dev, kernels))
     emit(phase_cross_attn_int8(dev, kernels))
     emit(phase_cross_attn_int4_single(dev, kernels))
     emit(phase_encoder_attn(dev, kernels))
+    emit(phase_cross_attn_tp(dev, kernels))
     torch.cuda.empty_cache()
     emit(phase_check(dev))
-    # kernel #4 is on no path: its counter is zeroed and read beside the others
+    # kernels #4 and #5 are on no single-card path: their counters are
+    # zeroed and read beside the others
     summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked],
-                                   off_path=[cross_attention_int4])
+                                   off_path=[cross_attention_int4, cross_attention_int4_stacked_tp])
     emit(summary)
     kernels["log_mel"]["launches"] = summary["launches"]["log_mel"]
     kernels["cross_attn_int4"]["launches"] = summary["launches"]["cross_attention_int4_stacked"]
@@ -703,6 +1031,9 @@ def main() -> None:
     kernels["encoder_attn"]["launches"] = openai["launches"]["fused_self_attention"]
     kernels["cross_attn_int4_single"]["launches"] = (
         summary["launches"]["cross_attention_int4"] + openai["launches"]["cross_attention_int4"])
+    torch.cuda.empty_cache()
+    tp_summary, kernels["cross_attn_int4_tp"]["launches"] = phase_transcribe_tp(dev, tr.tokens)
+    emit(tp_summary)
     emit(phase_bench(dev, tr, bs=32, n_timed=5, profile=True))
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False))
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False, fused_encoder=True,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: A (log-mel), B (int4 cross-attention, stacked and single-layer), the
-int8 cross-attention and the encoder self-attention; and the decodes that
-run them (greedy, int8-kernel greedy, beam) against the CPU's tokens.
+card: A (log-mel), B (int4 cross-attention, stacked and single-layer), #5
+(kernel B on a model rank's heads), the int8 cross-attention and the
+encoder self-attention; and the decodes that run them (greedy,
+int8-kernel greedy, beam) against the CPU's tokens.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  This file imports neither jax nor the JAX package,
@@ -21,6 +22,7 @@ from audio_processor_tpu_torch.ops import frontend
 from audio_processor_tpu_torch.ops.kernels import decode_attention as da
 from audio_processor_tpu_torch.ops.kernels import encoder_attention as ea
 from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+from audio_processor_tpu_torch.parallel.mesh import Mesh, split_bounds
 from audio_processor_tpu_torch.runtime.device import set_full_fp32
 
 pytestmark = pytest.mark.cuda
@@ -215,3 +217,51 @@ def test_new_wrappers_reject_bad_inputs(dev):
         ea.fused_self_attention(x32, x32, x32)
     with pytest.raises(ValueError):
         ea.fused_self_attention(x.half(), x.half(), x.half())
+
+
+@pytest.mark.parametrize("tp,b", [(2, 8), (3, 8), (4, 8), (2, 5), (3, 3)])
+def test_tp_kernel_matches_plain_and_full_heads(dev, tp, b):
+    """Kernel #5 on each emulated model rank's contiguous head slice of q and
+    of the stacked cache (whisper-small's 12 heads; ragged batches too):
+    within 5e-4 of its plain version, and the ranks' outputs concatenated
+    along the heads equal kernel B's full-head output exactly (both run
+    one CTA per (head, row))."""
+    g = torch.Generator(device=dev).manual_seed(10 * tp + b)
+    n_layers, h, dh, tpad, valid = 2, 12, 64, 1536, 1500
+    k8 = torch.randint(-7, 8, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-7, 8, (n_layers, b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    k4, v4 = da.pack_int4_time(k8, v8)
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.1
+    for layer in range(n_layers):
+        full = da.cross_attention_int4_stacked(q, k4, v4, layer, valid_len=valid)
+        parts = []
+        for r in range(tp):
+            mesh = Mesh(dp=1, tp=tp, data_rank=0, model_rank=r, device=dev)
+            lo, hi = split_bounds(h, mesh)
+            ql = q[:, :, lo:hi].contiguous()
+            kl, vl = k4[:, :, lo:hi].contiguous(), v4[:, :, lo:hi].contiguous()
+            before = da.cross_attention_int4_stacked_tp.launches
+            out = da.cross_attention_int4_stacked_tp(mesh, ql, kl, vl, layer, valid_len=valid,
+                                                     n_head=h)
+            torch.cuda.synchronize()
+            assert da.cross_attention_int4_stacked_tp.launches == before + 1
+            ref = da.cross_attention_int4_reference(ql, kl[layer], vl[layer], valid_len=valid)
+            assert (out - ref).abs().max().item() <= 5e-4
+            parts.append(out)
+        assert torch.equal(torch.cat(parts, dim=2), full)
+
+
+def test_tp_kernel_rejects_heads_that_do_not_shard(dev):
+    mesh = Mesh(dp=1, tp=5, data_rank=0, model_rank=0, device=dev)
+    k4 = torch.zeros((1, 2, 2, 16, 128), dtype=torch.int8, device=dev)
+    v4 = torch.zeros((1, 2, 2, 128, 16), dtype=torch.int8, device=dev)
+    q = torch.zeros((2, 1, 2, 16), device=dev)
+    before = da.cross_attention_int4_stacked_tp.launches
+    with pytest.raises(ValueError, match="heads do not shard"):
+        da.cross_attention_int4_stacked_tp(mesh, q, k4, v4, 0, valid_len=200, n_head=12)
+    with pytest.raises(ValueError, match="expected"):
+        da.cross_attention_int4_stacked_tp(mesh, q, k4, v4, 0, valid_len=200, n_head=5)
+    with pytest.raises(ValueError):  # kernel B's own checks: layer out of range
+        da.cross_attention_int4_stacked_tp(mesh, q[:, :, :1].contiguous(), k4[:, :, :1].contiguous(),
+                                           v4[:, :, :1].contiguous(), 1, valid_len=200, n_head=5)
+    assert da.cross_attention_int4_stacked_tp.launches == before

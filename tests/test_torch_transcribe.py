@@ -154,7 +154,8 @@ def test_language_voting_equal_jax(speech_like_audio):
 
 @pytest.mark.parametrize("option", [
     dict(word_timestamps=True), dict(quantize_self_kv=True),
-    dict(word_timestamps=True, hallucination_silence_threshold=2.0), dict(mesh="dp"),
+    dict(word_timestamps=True, hallucination_silence_threshold=2.0),
+    dict(hallucination_silence_threshold=2.0),
 ])
 def test_later_slice_options_raise(option):
     with pytest.raises(NotImplementedError):
@@ -237,7 +238,7 @@ def test_resample_and_batch_raise(pairs):
     with pytest.raises(NotImplementedError):
         pt.transcribe(np.zeros(8000, np.float32), sample_rate=8000)
     with pytest.raises(NotImplementedError):
-        pt.transcribe_batch([np.zeros(8000, np.float32)])
+        pt.transcribe_batch([np.zeros(8000, np.float32)], sample_rate=8000)
 
 
 def test_default_device_needs_a_card(monkeypatch):

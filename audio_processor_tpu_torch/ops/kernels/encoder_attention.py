@@ -9,8 +9,10 @@ softmax run in float32 and the normalised probabilities are rounded to
 the compute dtype before the product with V, as the TPU kernel does.
 
 ``fused_self_attention`` launches the kernel on CUDA tensors and runs the
-plain version (``attention_reference``) on CPU tensors.  Bound and design:
-see the source.
+plain version (``attention_reference``) on CPU tensors.  The bf16 kernel
+gathers the softmax statistics tile by tile in a first pass over the keys
+and forms P in a second, so it rounds the same P as the plain version.
+Bound and design: see the source.
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
         raise ValueError(f"fused_self_attention takes float32 or bfloat16, not {q.dtype}")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head dim {dh} is not one of the kernel's {_HEAD_DIMS}")
-    align = 16 // q.element_size()  # 16-byte tile loads
+    align = 16 // q.element_size()  # TMA (bf16) and float4 loads (f32): 16-byte units
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype or tuple(x.shape) != (b, t, h, dh):
             raise ValueError(f"{name} must be a {q.dtype} tensor of shape {(b, t, h, dh)} on {q.device}")

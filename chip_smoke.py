@@ -143,7 +143,7 @@ def speech_like(seconds: float, seed: int) -> np.ndarray:
 
 def phase_log_mel(dev, kernels) -> dict:
     from audio_processor_tpu_torch.ops import frontend
-    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+    from audio_processor_tpu_torch.ops.kernels.log_mel import four_step_tables, log_mel
 
     g = torch.Generator(device=dev).manual_seed(0)
     b, n = 8, frontend.N_SAMPLES
@@ -173,31 +173,60 @@ def phase_log_mel(dev, kernels) -> dict:
     lib_err = (library() - frontend.log_mel_spectrogram(audio, 80)).abs().max().item()
     frames = n // frontend.HOP_LENGTH
     n_fft, n_freqs = frontend.N_FFT, frontend.N_FREQS
-    # bytes: audio in and log-mel out once per window, the bases and the
-    # filterbank once per call
-    nbytes = b * (4 * n + 4 * frames * 80) + 4 * (2 * n_fft * n_freqs + n_freqs * 80)
-    # operations the function needs: per frame, the window multiply, a real
-    # FFT (2.5 N log2 N, half a complex FFT's 5 N log2 N), power (3 a bin),
-    # the mel projection (2 a bin and mel) and the log and clamp (3 a mel)
-    per_frame = (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs
-                 + 2 * n_freqs * 80 + 3 * 80)
-    bms, by = bound_ms(nbytes, b * frames * per_frame)
-    # the kernel's own algorithm (the TPU kernel's): the DFT as two matmuls
-    # against the (400, 201) bases, about 8x the operations of the FFT
-    dft_flops = b * frames * (2 * 2 * n_fft * n_freqs + 2 * n_freqs * 80)
-    dft_bms = bound_ms(nbytes, dft_flops)[0]
+    tables = four_step_tables(80)
+    table_bytes = sum(a.nbytes for a in tables.values())
+
+    def bounds(rows):
+        """(function bound, its limit, DFT-as-matmul bound, four-step bound)
+        in ms for ``rows`` windows at 80 mels.  Bytes: audio in and log-mel
+        out once a window, the kernel's tables once a call."""
+        nbytes = rows * (4 * n + 4 * frames * 80) + table_bytes
+        # operations the function needs: per frame, the window multiply, a
+        # real FFT (2.5 N log2 N, half a complex FFT's 5 N log2 N), power (3
+        # a bin), the mel projection (2 a non-zero of the filterbank: the
+        # zeros add nothing) and the log and clamp (3 a mel)
+        per_frame = (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs
+                     + 2 * tables["weights"].size + 3 * 80)
+        fn_ms, by = bound_ms(nbytes, rows * frames * per_frame)
+        # the TPU kernel's algorithm (this kernel's first port): the DFT as two matmuls
+        # against the (400, 201) bases, about 8x the operations of the FFT
+        dft = rows * frames * (2 * 2 * n_fft * n_freqs + 2 * n_freqs * 80)
+        # this kernel's: stage 1 (20 n2 x 11 k1 x 20 n1, re and im), stage 2
+        # (201 kept bins x 20 n2, a complex multiply-add each), power, the
+        # sparse mel (the filters' non-zeros) and the log and clamp
+        four = rows * frames * (2 * 2 * 20 * 11 * 20 + 8 * n_freqs * 20 + 3 * n_freqs
+                                + 2 * tables["weights"].size + 3 * 80)
+        return fn_ms, by, bound_ms(nbytes, dft)[0], bound_ms(nbytes, four)[0]
+
+    bms, by, dft_bms, four_bms = bounds(b)
     ms = time_ms(lambda: log_mel(audio, 80), iters=20)
     plain = time_ms(lambda: frontend.log_mel_spectrogram(audio, 80), iters=5)
     lib = time_ms(library, iters=10)
     out.update(kernel_ms=ms, plain_ms=plain, library_ms=lib, library_max_abs_err=lib_err,
-               bound_ms=bms, bound_by=by, dft_algorithm_bound_ms=dft_bms, n_mels_timed=80)
+               bound_ms=bms, bound_by=by, dft_algorithm_bound_ms=dft_bms,
+               algorithm_bound_ms=four_bms, n_mels_timed=80)
+    del audio
+    # the bench's batch and the default slab: 128 windows
+    big = 128
+    audio = torch.randn(big, n, device=dev, generator=g) * 0.2
+    got = log_mel(audio, 80)
+    torch.cuda.synchronize()
+    err = (got - frontend.log_mel_spectrogram(audio, 80)).abs().max().item()
+    if not err <= 1e-4:
+        fail(f"log_mel B={big}: max abs err {err} > 1e-4")
+    out.update(max_abs_err_b128=err, kernel_ms_b128=time_ms(lambda: log_mel(audio, 80), iters=10),
+               library_ms_b128=time_ms(library, iters=5))
+    out["bound_ms_b128"], _, out["dft_algorithm_bound_ms_b128"], out["algorithm_bound_ms_b128"] = \
+        bounds(big)
     kernels["log_mel"] = dict(
         name="log_mel", route="cuda", source="audio_processor_tpu_torch/csrc/log_mel.cu",
         replaces="audio_processor_tpu/ops/pallas/mel_kernel.py:61",
-        max_abs_err=max(out["max_abs_err_80"], out["max_abs_err_128"]),
+        max_abs_err=max(out["max_abs_err_80"], out["max_abs_err_128"], err),
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-        dft_algorithm_bound_ms=dft_bms,
+        dft_algorithm_bound_ms=dft_bms, algorithm_bound_ms=four_bms,
         shape=f"audio ({b}, {n}) f32 -> ({b}, 80, {frames})",
+        ms_b128=out["kernel_ms_b128"], library_ms_b128=out["library_ms_b128"],
+        bound_ms_b128=out["bound_ms_b128"],
     )
     return out
 
@@ -332,7 +361,7 @@ def phase_encoder_attn(dev, kernels) -> dict:
     bms, by = bound_ms(nbytes, 4 * b * h * t * t * dh, PEAK_BF16_FLOPS)
     out.update(kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                plain_peak_mem_gb=plain_peak_gb, timed="bf16, B=128, one layer per call",
-               bound_share=bms / ms)
+               bound_share=bms / ms, kernel_over_library=ms / lib)
     kernels["encoder_attn"] = dict(
         name="encoder_attn", route="cuda", source="audio_processor_tpu_torch/csrc/encoder_attn.cu",
         replaces="audio_processor_tpu/ops/pallas/encoder_attention.py:80",
@@ -997,8 +1026,10 @@ def main(argv: list[str] | None = None) -> None:
     # one nvcc per source, all started together
     logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn"],
                        ptxas_report=True)
+    # per kernel: its name, then its registers and its spills
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+          "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                        if any(w in ln for w in ("Function properties", "registers", "spill"))]
                     for k, v in logs.items()}})
     if args.tp_only:
         summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])

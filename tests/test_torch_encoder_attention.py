@@ -87,6 +87,21 @@ def test_encode_fused_matches_jax_kernel(monkeypatch):
     np.testing.assert_allclose(ours, plain, atol=1e-6)
 
 
+# one ragged tile; one past a whole tile; 11 whole tiles and a tail of 92
+@pytest.mark.parametrize("t", [77, 129, 1500])
+def test_plain_matches_jax_kernel_bf16_at_kernel_tiles(t):
+    """At the card test's lengths around the bf16 kernel's 128-key tiles,
+    the plain version (the kernel's bar on the card) stays within that
+    bar, 4e-3, of the JAX Pallas kernel: both round the same normalised P."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(t + 1, (1, t, 2, 64)))
+    ref = ea.attention_reference(q, k, v).float()
+    assert ref.shape == (1, t, 2, 64)
+    jax_ref = np.asarray(jea.fused_self_attention(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)), interpret=True
+    ), np.float32)
+    assert np.abs(ref.numpy() - jax_ref).max() <= 4e-3
+
+
 def test_wrapper_rejects_other_devices():
     q = torch.zeros((1, 4, 1, 32), device="meta")
     with pytest.raises(ValueError):

@@ -50,6 +50,43 @@ def test_log_mel_kernel_matches_plain(dev, n_mels, n_samples):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_kernel_matches_plain_at_bench_batch(dev, n_mels):
+    """B=128 windows (the bench's batch and the default slab): 12,000
+    32-frame items walked by one persistent CTA an SM."""
+    g = torch.Generator(device=dev).manual_seed(128 + n_mels)
+    audio = torch.randn(128, frontend.N_SAMPLES, device=dev, generator=g) * 0.2
+    audio[::7] *= 1e-3  # quiet windows among loud ones
+    before = log_mel.launches
+    out = log_mel(audio, n_mels)
+    torch.cuda.synchronize()
+    assert log_mel.launches == before + 1
+    ref = frontend.log_mel_spectrogram(audio, n_mels)
+    assert out.shape == ref.shape == (128, n_mels, frontend.N_FRAMES)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_rewritten_kernels_still_reject_bad_inputs(dev):
+    """The wrappers of the redesigned kernels refuse what they refused
+    before, and launch nothing for it."""
+    before = (log_mel.launches, ea.fused_self_attention.launches)
+    for bad in (torch.zeros((2, 480_000), device=dev)[:, ::2],  # not contiguous
+                torch.zeros(480_000, device=dev),                 # not (B, n_samples)
+                torch.zeros((2, 150), device=dev)):               # too short to frame
+        with pytest.raises(ValueError):
+            log_mel(bad)
+    x = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
+    wide = torch.zeros((1, 8, 2, 68), device=dev, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError):  # row stride of 68 elements: not 16-byte units
+        ea.fused_self_attention(wide, x, x)
+    gapped = torch.zeros((1, 8, 2, 128), device=dev, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError):  # the head axis is not contiguous
+        ea.fused_self_attention(gapped, x, x)
+    with pytest.raises(ValueError):  # k of another shape
+        ea.fused_self_attention(x, x[:, :4], x)
+    assert (log_mel.launches, ea.fused_self_attention.launches) == before
+
+
 @pytest.mark.parametrize("b,tq,h,dh,tpad,valid", [
     (3, 1, 2, 16, 256, 201), (3, 3, 2, 16, 256, 201), (8, 4, 12, 64, 1536, 1500),
 ])
@@ -183,6 +220,30 @@ def test_encoder_attention_kernel_matches_plain(dev, dtype, tol, t, h):
     ref = ea.attention_reference(q, k, v)
     assert out.dtype == dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split-views", "contiguous"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t", [1, 127, 128, 129, 1500])
+def test_encoder_attention_bf16_tiles_and_layouts(dev, t, b, split):
+    """The bf16 kernel around its 128-row tiles (one key, one short of a
+    tile, a whole tile, one past, whisper's 1500 = 11 tiles + 92) on the
+    split-heads views of one (B, T, 3*H*Dh) projection and on contiguous
+    (B, T, H, Dh) tensors: within 4e-3 of the reference."""
+    g = torch.Generator(device=dev).manual_seed(1000 * b + t)
+    h, dh = 12, 64
+    if split:
+        qkv = torch.randn(b, t, 3 * h * dh, device=dev, generator=g).bfloat16()
+        q, k, v = (x.reshape(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, t, h, dh, device=dev, generator=g).bfloat16() for _ in range(3))
+    before = ea.fused_self_attention.launches
+    out = ea.fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ea.fused_self_attention.launches == before + 1
+    assert out.shape == (b, t, h, dh) and out.dtype == torch.bfloat16
+    ref = ea.attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= 4e-3
 
 
 def test_encoder_attention_kernel_peak_memory(dev):

@@ -20,8 +20,10 @@ Differences in idiom from the JAX version:
     EOT (greedy) or every element holds its finished hypotheses (beam), the
     JAX package's lax.while_loop conditions.  The outputs are the same:
     the JAX loops' extra final forward produces logits nobody reads.
-  * Sampling at T > 0 draws from a ``torch.Generator`` seeded from
-    ``rng_seed``; its numbers differ from ``jax.random``'s.
+  * Sampling at T > 0 draws by Gumbel-max from a counter-based stream
+    keyed by (``rng_seed``, the row's index in the whole batch, the step,
+    the vocab id), so a row's draws do not depend on the batch shape or
+    the data-parallel degree; its numbers differ from ``jax.random``'s.
   * Beam search breaks ties as ``jax.lax.top_k`` and the stable
     ``jnp.argsort`` do, toward the lower index (``_top_k_lower_index``,
     ``torch.argsort(stable=True)``); ``torch.topk`` promises no order.
@@ -32,7 +34,8 @@ Differences in idiom from the JAX version:
     group, and the int4 cross-attention through kernel #5.  The logits
     follow the all-reduce and a replicated unembedding, so they, and every
     token picked from them, are the same on every rank of a model group;
-    sampling draws from generators seeded alike.  JAX shards one program
+    a data rank samples its rows from their streams in the whole batch, as
+    one process would.  JAX shards one program
     over the mesh instead (GSPMD).
 """
 from __future__ import annotations
@@ -521,6 +524,53 @@ class DecodeResult(NamedTuple):
     no_speech_prob: torch.Tensor  # (B,) P(no_speech) at the SOT position
 
 
+_U64 = (1 << 64) - 1
+
+
+def _i64(x: int) -> int:
+    """The int64 whose bits are the low 64 bits of x."""
+    x &= _U64
+    return x - (1 << 64) if x >> 63 else x
+
+
+_GOLDEN = _i64(0x9E3779B97F4A7C15)
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+_STEP = _i64(0xD1B54A32D192ED03)
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's >> is arithmetic)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finaliser on int64 tensors (products wrap mod 2^64)."""
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def sampling_row_keys(seed: int, rows: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 keys of the sampling streams of batch rows ``rows``
+    (their indices in the whole batch) under ``seed``."""
+    seed_key = _mix64(torch.tensor(_i64(int(seed) + _GOLDEN), device=rows.device))
+    return _mix64(seed_key + rows.long() * _GOLDEN)
+
+
+def sample_tokens(masked: torch.Tensor, temperature: float, row_keys: torch.Tensor,
+                  step: int) -> torch.Tensor:
+    """One categorical draw a row from softmax(masked / temperature), by
+    Gumbel-max: argmax(masked / T - log(-log u)), u uniform in (0, 1) from
+    a 64-bit hash of (seed, row, step, vocab id).  A row's draws depend on
+    its key and nothing else: not the batch shape, not the data ranks."""
+    v = masked.shape[-1]
+    vocab = torch.arange(v, device=masked.device) * _GOLDEN
+    h = _mix64((row_keys ^ _i64((step + 1) * _STEP))[:, None] + vocab[None, :])
+    u = (_shr(h, 11).double() + 0.5) * 2.0**-53  # 53 bits, never 0 or 1
+    return (masked.double() / temperature - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
 def _sample_loop(
     params: Params,
     cfg: WhisperConfig,
@@ -556,10 +606,10 @@ def _sample_loop(
     max_ts = torch.full((b,), tb - 1, dtype=torch.long, device=dev)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     sum_lp = torch.zeros(b, dtype=torch.float32, device=dev)
-    gen = None
     if temperature > 0:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(rng_seed))
+        # the rows' indices in the whole batch, across the data ranks
+        row0 = 0 if mesh is None else mesh.data_rank * b
+        row_keys = sampling_row_keys(rng_seed, torch.arange(row0, row0 + b, device=dev))
     logits = last_logits
     for step in range(max_new_tokens):
         masked = apply_logit_rules(
@@ -570,8 +620,7 @@ def _sample_loop(
             space_blank_id=space_blank_id,
         )
         if temperature > 0:
-            probs = torch.softmax(masked / temperature, dim=-1)
-            next_tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            next_tok = sample_tokens(masked, temperature, row_keys, step)
         else:
             next_tok = masked.argmax(dim=-1)
         logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]

@@ -122,11 +122,34 @@ def _library() -> ctypes.CDLL:
     fn = lib.cross_attn_int4_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+# Kernel B's time split: packed columns a chunk (csrc/cross_attn_int4.cu kChunk)
+INT4_CHUNK = 64
+INT4_MAX_DH = 256
+INT4_MAX_HALF = 128 * INT4_CHUNK  # a chunk a thread in the combine
+# per (device index, stream): kernel B's (row, head) counters for its
+# last-block combine, zeroed once when made (every launch leaves them at 0),
+# and a decode step's (Tq=1) workspace of per-chunk partials; grown when a
+# call needs more
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(q: torch.Tensor, stream: int, n_counters: int, n_work: int):
+    key = (q.get_device(), stream)
+    counters, work = _SCRATCH.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
+    if work is None or work.numel() < n_work:
+        work = torch.empty(n_work, dtype=torch.float32, device=q.device)
+    _SCRATCH[key] = counters, work
+    return counters, work
 
 
 def _launch_int4_stacked(name, q, k4_all, v4_all, layer, valid_len) -> torch.Tensor:
@@ -139,20 +162,28 @@ def _launch_int4_stacked(name, q, k4_all, v4_all, layer, valid_len) -> torch.Ten
     _check_cache("v4_all", v4_all, q.device, (n_layers, b, h, half, dh))
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range for {n_layers} layers")
-    if dh % 4 or half % 4:
-        raise ValueError(f"kernel needs Dh and Tpad/2 divisible by 4 (Dh={dh}, Tpad/2={half})")
+    if dh & (dh - 1) or not 8 <= dh <= INT4_MAX_DH or half % INT4_CHUNK or half > INT4_MAX_HALF:
+        raise ValueError(f"kernel needs Dh a power of two in [8, {INT4_MAX_DH}] and Tpad/2 "
+                         f"a multiple of {INT4_CHUNK} up to {INT4_MAX_HALF} "
+                         f"(Dh={dh}, Tpad/2={half})")
+    k_ptr, v_ptr = k4_all.data_ptr(), v4_all.data_ptr()
+    if (k_ptr | v_ptr) % 16:
+        raise ValueError("kernel needs 16-byte aligned caches (it copies 16 bytes at a time)")
     if not 1 <= valid_len <= 2 * half:
         raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
     lib = _library()
     out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
-    layer_bytes = b * h * dh * half
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # each live chunk's (max, sum, acc[Dh]) per query row, combined in the launch
+    chunks = -(-((valid_len + 1) // 2) // INT4_CHUNK)
+    counters, work = _scratch(q, stream, b * h, b * h * chunks * (dh + 2))
+    if tq > 1:  # a prefill's partials: not kept between calls
+        work = torch.empty(b * h * tq * chunks * (dh + 2), dtype=torch.float32, device=q.device)
+    layer_bytes = b * h * dh * half
     rc = lib.cross_attn_int4_launch(
-        q.data_ptr(),
-        k4_all.data_ptr() + layer * layer_bytes,
-        v4_all.data_ptr() + layer * layer_bytes,
-        out.data_ptr(), b, tq, h, dh, half, valid_len,
-        1.0 / math.sqrt(dh), stream,
+        q.data_ptr(), k_ptr + layer * layer_bytes, v_ptr + layer * layer_bytes,
+        out.data_ptr(), work.data_ptr(), counters.data_ptr(),
+        b, tq, h, dh, half, valid_len, 1.0 / math.sqrt(dh), stream,
     )
     if rc != 0:
         raise RuntimeError(f"cross_attn_int4 kernel launch failed: CUDA error {rc}")

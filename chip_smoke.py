@@ -66,6 +66,19 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def sass_i2f(build, name: str) -> int | str:
+    """I2F instructions in the SASS of a built kernel library (cuobjdump
+    beside nvcc), or "not measured" without cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "not measured (no cuobjdump beside nvcc)"
+    proc = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 or "PRMT" not in proc.stdout:
+        fail(f"cuobjdump -sass {name}: {proc.stderr.strip()[-500:]}")
+    return sum("I2F" in ln for ln in proc.stdout.splitlines())  # I2F and I2FP alike
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn() over iters calls, by CUDA events."""
     for _ in range(warmup):
@@ -289,33 +302,40 @@ def phase_cross_attn(dev, kernels) -> dict:
                - da.cross_attention_int4_reference(q, k4[0], v4[0], valid_len=valid)).abs().max().item()
     lib = time_ms(library, iters=20)
 
-    def needed(rows):  # bytes (valid K/V nibbles, q in, out) and FLOPs of one call
-        return (2 * rows * h * dh * math.ceil(valid / 2) + 2 * 4 * rows * h * dh,
-                4 * rows * h * dh * valid)
+    def needed(rows, tq=1):  # bytes (valid K/V nibbles, q in, out) and FLOPs of one call
+        return (2 * rows * h * dh * math.ceil(valid / 2) + 2 * 4 * rows * tq * h * dh,
+                4 * rows * tq * h * dh * valid)
 
     bms, by = bound_ms(*needed(b))
     out.update(kernel_ms=ms, kernel_device_ms=device_ms(kernel, iters=48), plain_ms=plain,
                library_ms=lib, library_max_abs_err=lib_err, bound_ms=bms, bound_by=by,
                timed="Tq=1, B=128, one layer per call")
 
-    # the transcribe phase's own slab: 8 windows
+    # the transcribe phase's own slab: 8 windows, a decode step (Tq=1) and a
+    # prompted prefill (Tq=48)
     k4s, v4s = k4[:, :8].contiguous(), v4[:, :8].contiguous()
-    qs = q[:8].contiguous()
-    got = da.cross_attention_int4_stacked(qs, k4s, v4s, 3, valid_len=valid)
-    torch.cuda.synchronize()
-    err = (got - da.cross_attention_int4_reference(qs, k4s[3], v4s[3], valid_len=valid)).abs().max().item()
-    if not err <= 5e-4:
-        fail(f"cross_attn_int4 B=8: max abs err {err} > 5e-4")
-    worst = max(worst, err)
-    out.update(max_abs_err_b8=err, bound_ms_b8=bound_ms(*needed(8))[0], kernel_ms_b8=device_ms(
-        lambda: da.cross_attention_int4_stacked(qs, k4s, v4s, 3, valid_len=valid), iters=48))
+    for tq in (1, 48):
+        qs = q[:8].contiguous() if tq == 1 else torch.randn(8, tq, h, dh, device=dev, generator=g) * 0.1
+        got = da.cross_attention_int4_stacked(qs, k4s, v4s, 3, valid_len=valid)
+        torch.cuda.synchronize()
+        err = (got - da.cross_attention_int4_reference(qs, k4s[3], v4s[3], valid_len=valid)).abs().max().item()
+        if not err <= 5e-4:
+            fail(f"cross_attn_int4 B=8 tq={tq}: max abs err {err} > 5e-4")
+        worst = max(worst, err)
+        key = "b8" if tq == 1 else f"b8_tq{tq}"
+        call = lambda qs=qs: da.cross_attention_int4_stacked(qs, k4s, v4s, 3, valid_len=valid)
+        out.update({f"max_abs_err_{key}": err, f"bound_ms_{key}": bound_ms(*needed(8, tq))[0],
+                    f"kernel_ms_{key}": device_ms(call, iters=48),  # device time
+                    f"kernel_event_ms_{key}": time_ms(call, iters=48)})  # host launch included
     kernels["cross_attn_int4"] = dict(
         name="cross_attn_int4", route="cuda",
         source="audio_processor_tpu_torch/csrc/cross_attn_int4.cu",
         replaces="audio_processor_tpu/ops/pallas/decode_attention.py:411",
         max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         shape=f"q ({b}, 1, {h}, {dh}) f32 vs layer of K/V ({n_layers}, {b}, {h}, ., {tpad // 2}) int4x2",
-        ms_b8=out["kernel_ms_b8"], bound_ms_b8=out["bound_ms_b8"],
+        ms_b8=out["kernel_ms_b8"], event_ms_b8=out["kernel_event_ms_b8"],
+        bound_ms_b8=out["bound_ms_b8"], ms_b8_tq48=out["kernel_ms_b8_tq48"],
+        event_ms_b8_tq48=out["kernel_event_ms_b8_tq48"], bound_ms_b8_tq48=out["bound_ms_b8_tq48"],
     )
     return out
 
@@ -533,7 +553,8 @@ def phase_cross_attn_tp(dev, kernels) -> dict:
     emulated model rank's contiguous slice of q and of the stacked cache
     (its heads) goes through the wrapper.  Concatenated along the heads,
     the ranks' outputs must equal kernel B's full-head output bit for bit
-    (both run one CTA per (head, row)), and each rank's must lie within
+    (a (row, head)'s 64-column chunks and the order in which its last block
+    combines them do not depend on the grid), and each rank's must lie within
     5e-4 of the plain version.  Timed per rank at tp=2, the transcribe_tp
     meshes' split, with SDPA on the rank's dequantized bf16 K/V beside."""
     from audio_processor_tpu_torch.ops.kernels import decode_attention as da
@@ -1026,8 +1047,12 @@ def main(argv: list[str] | None = None) -> None:
     # one nvcc per source, all started together
     logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn"],
                        ptxas_report=True)
-    # per kernel: its name, then its registers and its spills
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    # per kernel: its name, then its registers and its spills; kernel B's
+    # library must convert nibbles without an int-to-float instruction
+    i2f = sass_i2f(build, "cross_attn_int4")
+    if isinstance(i2f, int) and i2f:
+        fail(f"build: cross_attn_int4's SASS holds {i2f} I2F instructions")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "cross_attn_int4_sass_i2f": i2f,
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if any(w in ln for w in ("Function properties", "registers", "spill"))]
                     for k, v in logs.items()}})

@@ -5,8 +5,9 @@ Greedy decode at T=0 must agree token for token (and in lengths) with
 ``decode.greedy_decode`` for the int4 kernel-layout, int8 and unquantized
 caches.  Floats (no-speech probability, summed logprob) are compared at
 1e-5: the two frameworks sum in different orders.  Sampling at T>0 cannot
-match jax.random, so it is checked against the rules, the best_of ranking
-and seed determinism instead.
+match jax.random, so it is checked against the rules, the best_of ranking,
+seed determinism, the softmax it draws from and the independence of a
+row's draws from the other rows instead.
 """
 import dataclasses
 
@@ -294,6 +295,64 @@ def test_best_of_picks_highest_average_logprob(weights, states, suppress):
     assert torch.equal(best.tokens, cands.tokens[pick])
     assert torch.equal(best.lengths, cands.lengths[pick])
     assert torch.equal(best.no_speech_prob, cands.no_speech_prob[::3])
+
+
+@pytest.mark.parametrize("best_of", [1, 2])
+def test_sampled_row_ignores_the_other_rows(weights, states, suppress, best_of):
+    """A row's draws are keyed by its index in the batch: with other rows
+    around it (fewer of them, other audio) its sampled tokens stay."""
+    _, params = weights
+    kw = dict(
+        sot_sequence=tuple(ST.sot_sequence()), max_new_tokens=MAX_NEW,
+        suppress_mask=torch.from_numpy(suppress), temperature=1.0, rng_seed=9,
+        best_of=best_of, quantize_cross_kv=True, kv_bits=4,
+    )
+    x = torch.from_numpy(states)
+    whole = decode.greedy_decode(params, CFG, x, **kw)
+    other = torch.from_numpy(np.random.default_rng(99).normal(0, 1, x[:1].shape).astype(np.float32))
+    fewer = decode.greedy_decode(params, CFG, torch.cat([other, x[1:2]]), **kw)
+    assert torch.equal(fewer.tokens[1], whole.tokens[1])
+    assert torch.equal(fewer.lengths[1], whole.lengths[1])
+    greedy = decode.greedy_decode(params, CFG, x, **dict(kw, temperature=0.0))
+    assert not torch.equal(whole.tokens, greedy.tokens)  # it did sample
+
+
+def test_mix64_equals_numpy_uint64():
+    """The sampler's hash on int64 tensors is splitmix64's finaliser in
+    uint64 arithmetic (torch's >> is arithmetic and its products wrap)."""
+    xs = np.random.default_rng(12).integers(-2**63, 2**63 - 1, 4099, dtype=np.int64)
+    x = xs.view(np.uint64)
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    got = decode._mix64(torch.from_numpy(xs)).numpy().view(np.uint64)
+    np.testing.assert_array_equal(got, x)
+
+
+def test_sample_tokens_follow_the_softmax():
+    """Gumbel-max draws over 40,000 rows (one stream each) land on
+    softmax(logits / T) within 0.01, masked ids never; a fixed key and step
+    draws the same token whatever row sits beside it."""
+    probs = np.array([0.1, 0.2, 0.0, 0.3, 0.4])
+    logits = torch.from_numpy(np.log(np.maximum(probs, 1e-300))).float()
+    logits[2] = float("-inf")
+    n, temp = 40_000, 0.7
+    keys = decode.sampling_row_keys(5, torch.arange(n))
+    toks = decode.sample_tokens(logits[None].repeat(n, 1) * temp, temp, keys, 3)
+    freq = torch.bincount(toks, minlength=5).double() / n
+    assert freq[2] == 0
+    assert (freq - torch.from_numpy(probs)).abs().max().item() <= 0.01
+    g = torch.Generator().manual_seed(0)
+    flat = torch.zeros(64, 50)
+    rows = torch.randn(64, 50, generator=g)
+    alone = torch.stack([decode.sample_tokens(rows[i:i + 1], 1.0, keys[i:i + 1], 3)[0]
+                         for i in range(64)])
+    assert torch.equal(decode.sample_tokens(rows, 1.0, keys[:64], 3), alone)
+    # the step and the row are in the key: uniform logits draw other ids
+    assert not torch.equal(decode.sample_tokens(flat, 1.0, keys[:64], 3),
+                           decode.sample_tokens(flat, 1.0, keys[:64], 4))
+    assert len(set(decode.sample_tokens(flat, 1.0, keys[:64], 3).tolist())) > 30
 
 
 def test_rank_groups_equal_jax():

@@ -123,6 +123,114 @@ def test_int4_single_layer_plain_matches_jax_kernel(b, tq):
     assert da.cross_attention_int4.launches == before
 
 
+# ---------------------------------------------------------------------------
+# kernel B's arithmetic (csrc/cross_attn_int4.cu), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+TWO23 = np.float32(2.0**23)
+
+
+def _byte_perm(x: np.ndarray, y: int, sel: int) -> np.ndarray:
+    """CUDA's __byte_perm(x, y, sel) on uint32 arrays: result byte n is
+    byte (sel >> 4n) & 7 of the eight bytes {x0..x3, y0..y3}."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [np.uint32((y >> (8 * i)) & 0xFF)
+                                                        for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << (8 * n)
+    return out
+
+
+def _magic(masked: np.ndarray, i: int) -> np.ndarray:
+    """The kernel's nibble i of a 0x0F0F0F0F-masked word as a float:
+    __byte_perm(masked, 0x4B000000, 0x7650 | i) read as float32."""
+    return _byte_perm(masked, 0x4B000000, 0x7650 | i).view(np.float32)
+
+
+def test_magic_number_conversion_every_nibble():
+    """2^23 + u exactly for every nibble u and byte position, low and high
+    nibbles alike; one subtraction gives u (V) or u - 8 (K) exactly."""
+    u = np.arange(16, dtype=np.uint32)
+    for i in range(4):
+        for high in (False, True):
+            # u in nibble position (i, high) of a word whose other nibbles are 15
+            word = np.uint32(0xFFFFFFFF) & ~np.uint32(0xF << (8 * i + 4 * high)) | (u << (8 * i + 4 * high))
+            masked = ((word >> 4) if high else word) & np.uint32(0x0F0F0F0F)
+            f = _magic(masked.astype(np.uint32), i)
+            assert f.dtype == np.float32
+            np.testing.assert_array_equal(f, TWO23 + u.astype(np.float32))
+            np.testing.assert_array_equal(f - TWO23, u.astype(np.float32))
+            np.testing.assert_array_equal(f - (TWO23 + np.float32(8)), u.astype(np.float32) - 8)
+
+
+def _nibbles_as_kernel(p8: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """(low, high) nibble values u of an int8 array through the kernel's
+    word-wise masks and magic numbers (the last axis in 4-byte words)."""
+    words = np.ascontiguousarray(p8.numpy()).view(np.uint32)
+    lo = [_magic(words & np.uint32(0x0F0F0F0F), i) - TWO23 for i in range(4)]
+    hi = [_magic((words >> 4) & np.uint32(0x0F0F0F0F), i) - TWO23 for i in range(4)]
+    shape = p8.shape
+    return (np.stack(lo, -1).reshape(shape), np.stack(hi, -1).reshape(shape))
+
+
+CHUNK = da.INT4_CHUNK
+
+
+def _chunked_kernel_model(q, k4, v4, valid_len):
+    """Kernel B's algorithm in float32: per live chunk of CHUNK packed
+    columns, the scores, a chunk-local softmax (max m, sum l) and the
+    unshifted P.u; then the last block's combine in chunk order,
+    out = sum e^(m_c - M) acc_c / sum e^(m_c - M) l_c - 8.  Chunks wholly
+    past valid_len are not launched: every score there is masked."""
+    b, tq, h, dh = q.shape
+    half = k4.shape[-1]
+    n_even, n_odd = (valid_len + 1) // 2, valid_len // 2
+    chunks = -(-n_even // CHUNK)
+    k_lo, k_hi = (torch.from_numpy(x) - 8 for x in _nibbles_as_kernel(k4))  # (B,H,Dh,half)
+    v_lo, v_hi = (torch.from_numpy(x) for x in _nibbles_as_kernel(v4))      # (B,H,half,Dh)
+    col = torch.arange(half)
+    for c in range(chunks, half // CHUNK):  # never launched: nothing valid in them
+        cols = col[c * CHUNK:(c + 1) * CHUNK]
+        assert not (cols < n_even).any() and not (cols < n_odd).any()
+    scale = 1.0 / np.sqrt(dh)
+    parts = []
+    for c in range(chunks):
+        cs = slice(c * CHUNK, (c + 1) * CHUNK)
+        s_lo = torch.einsum("bqhd,bhdj->bhqj", q, k_lo[..., cs]) * scale
+        s_hi = torch.einsum("bqhd,bhdj->bhqj", q, k_hi[..., cs]) * scale
+        s_lo = s_lo.masked_fill(col[cs] >= n_even, -np.inf)
+        s_hi = s_hi.masked_fill(col[cs] >= n_odd, -np.inf)
+        s = torch.cat([s_lo, s_hi], -1)
+        m = s.amax(-1)  # finite: the chunk's first even column is valid
+        p = torch.exp(s - m[..., None])
+        acc = (torch.einsum("bhqj,bhjd->bhqd", p[..., :CHUNK], v_lo[:, :, cs])
+               + torch.einsum("bhqj,bhjd->bhqd", p[..., CHUNK:], v_hi[:, :, cs]))
+        parts.append((m, p.sum(-1), acc))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = sum(torch.exp(m - big_m)[..., None] * acc for m, _, acc in parts)
+    den = sum(torch.exp(m - big_m) * l for m, l, _ in parts)
+    return (num / den[..., None] - 8).permute(0, 2, 1, 3)  # (B, Tq, H, Dh)
+
+
+@pytest.mark.parametrize("tq", [1, 4, 48])
+@pytest.mark.parametrize("valid", [1, 127, 128, 129, 1500])
+def test_chunked_kernel_model_matches_plain(valid, tq):
+    """Whisper's Tpad=1536 (12 chunks of 64 packed columns) and Dh=64:
+    valid_len 1 leaves 11 chunks wholly masked, 127-129 straddle the first
+    chunk's edge (even and odd halves end apart), 1500 is whisper's; Tq 48
+    is a prefill.  Within 5e-4 of the plain version (integer units)."""
+    rng = np.random.default_rng(valid + 7 * tq)
+    b, h, dh, tpad = 2, 2, 64, 1536
+    k8 = rng.integers(-7, 8, (b, h, dh, tpad)).astype(np.int8)
+    v8 = rng.integers(-7, 8, (b, h, tpad, dh)).astype(np.int8)
+    k4, v4 = da.pack_int4_time(torch.from_numpy(k8), torch.from_numpy(v8))
+    q = torch.from_numpy(rng.normal(0, 0.5, (b, tq, h, dh)).astype(np.float32))
+    got = _chunked_kernel_model(q, k4, v4, valid)
+    want = da.cross_attention_int4_reference(q, k4, v4, valid_len=valid)
+    assert got.shape == want.shape == (b, tq, h, dh)
+    assert (got - want).abs().max().item() <= 5e-4
+
+
 def test_wrappers_reject_other_devices():
     q = torch.zeros((1, 1, H, DH), device="meta")
     k = torch.zeros((1, H, DH, TPAD), dtype=torch.int8, device="meta")

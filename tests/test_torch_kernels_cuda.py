@@ -89,9 +89,14 @@ def test_rewritten_kernels_still_reject_bad_inputs(dev):
 
 @pytest.mark.parametrize("b,tq,h,dh,tpad,valid", [
     (3, 1, 2, 16, 256, 201), (3, 3, 2, 16, 256, 201), (8, 4, 12, 64, 1536, 1500),
+    # kernel B's 64-column chunks at whisper's widths: valid_len 1 leaves 11
+    # of 12 chunks wholly masked, 127-129 straddle the first chunk's edge;
+    # Tq 48 is a prefill; B=1 one block column a head
+    *[(2, tq, 12, 64, 1536, valid) for valid in (1, 127, 128, 129, 1500) for tq in (1, 4, 48)],
+    (1, 1, 12, 64, 1536, 1500), (1, 48, 12, 64, 1536, 129),
 ])
 def test_cross_attention_kernel_matches_plain(dev, b, tq, h, dh, tpad, valid):
-    g = torch.Generator(device=dev).manual_seed(b * tq)
+    g = torch.Generator(device=dev).manual_seed(b * tq + valid)
     n_layers = 3
     k8 = torch.randint(-7, 8, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
     v8 = torch.randint(-7, 8, (n_layers, b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
@@ -107,6 +112,50 @@ def test_cross_attention_kernel_matches_plain(dev, b, tq, h, dh, tpad, valid):
         assert (out - ref).abs().max().item() <= 5e-4
 
 
+def _int4_case(dev, seed, b, tq, h, valid, n_layers=2, dh=64, tpad=1536):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k8 = torch.randint(-7, 8, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-7, 8, (n_layers, b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    k4, v4 = da.pack_int4_time(k8, v8)
+    return torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.1, k4, v4, valid
+
+
+def test_int4_kernel_counters_reset_between_calls(dev):
+    """Kernel B's last-block combine takes tickets from per-(row, head)
+    counters and puts them back to 0: calls of other shapes (other grids,
+    chunk counts and counters) in turn give bit-equal outputs on a repeat."""
+    cases = [_int4_case(dev, 1, 8, 1, 12, 1500), _int4_case(dev, 2, 3, 4, 6, 129),
+             _int4_case(dev, 3, 5, 48, 12, 700)]
+    call = lambda q, k4, v4, valid: da.cross_attention_int4_stacked(q, k4, v4, 1, valid_len=valid)
+    first = [call(*c) for c in cases]
+    again = [call(*c) for c in reversed(cases)][::-1]
+    torch.cuda.synchronize()
+    for a, b, (q, k4, v4, valid) in zip(first, again, cases):
+        assert torch.equal(a, b)
+        ref = da.cross_attention_int4_reference(q, k4[1], v4[1], valid_len=valid)
+        assert (a - ref).abs().max().item() <= 5e-4
+
+
+def test_int4_kernel_converts_nibbles_without_int_to_float(dev):
+    """The built kernel B library holds no I2F instruction: nibbles become
+    floats through the 2^23 magic number (cuobjdump -sass of the library)."""
+    import os
+    import shutil
+    import subprocess
+
+    from audio_processor_tpu_torch.ops.kernels import build
+
+    tool = next((p for p in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
+                 if p and os.path.exists(p)), None)
+    if tool is None:
+        pytest.skip("cuobjdump is not installed beside nvcc")
+    build.load("cross_attn_int4")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("cross_attn_int4"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert "cross_attn_int4_kernel" in sass and "PRMT" in sass
+    assert "I2F" not in sass
+
+
 def test_cross_attention_wrapper_rejects_bad_inputs(dev):
     k4 = torch.zeros((1, 2, 2, 16, 128), dtype=torch.int8, device=dev)
     v4 = torch.zeros((1, 2, 2, 128, 16), dtype=torch.int8, device=dev)
@@ -117,6 +166,9 @@ def test_cross_attention_wrapper_rejects_bad_inputs(dev):
         da.cross_attention_int4_stacked(q, k4, v4, 1, valid_len=200)
     with pytest.raises(ValueError):
         da.cross_attention_int4_stacked(q, k4.transpose(3, 4), v4, 0, valid_len=200)
+    with pytest.raises(ValueError):  # Tpad/2 = 96: not whole 64-column chunks
+        da.cross_attention_int4_stacked(q, k4[..., :96].contiguous(), v4[..., :96, :].contiguous(),
+                                        0, valid_len=100)
     with pytest.raises(ValueError):
         log_mel(torch.zeros((2, 480_000), device=dev, dtype=torch.float64))
 
@@ -285,8 +337,9 @@ def test_tp_kernel_matches_plain_and_full_heads(dev, tp, b):
     """Kernel #5 on each emulated model rank's contiguous head slice of q and
     of the stacked cache (whisper-small's 12 heads; ragged batches too):
     within 5e-4 of its plain version, and the ranks' outputs concatenated
-    along the heads equal kernel B's full-head output exactly (both run
-    one CTA per (head, row))."""
+    along the heads equal kernel B's full-head output exactly (a (row,
+    head)'s 64-column chunks and their combine order do not depend on the
+    grid, so neither does its arithmetic)."""
     g = torch.Generator(device=dev).manual_seed(10 * tp + b)
     n_layers, h, dh, tpad, valid = 2, 12, 64, 1536, 1500
     k8 = torch.randint(-7, 8, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)

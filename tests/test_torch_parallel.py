@@ -401,7 +401,7 @@ def test_tp_encoder_equal_jax(world, jparams, jtree):
     np.testing.assert_array_equal(out[0], out[1])  # model ranks agree
 
 
-def case_decode(tree, states, kw, beam, temperature=0.0):
+def case_decode(tree, states, kw, beam, temperature=0.0, best_of=2):
     params = convert.params_from_jax(tree, "cpu")
     m = _mesh(2)
     local = sharding.shard_params(params, m, CFG)
@@ -412,7 +412,7 @@ def case_decode(tree, states, kw, beam, temperature=0.0):
         res = decode.beam_decode(local, CFG, x, beam_size=3, **kw)
     else:
         res = decode.greedy_decode(local, CFG, x, temperature=temperature, rng_seed=3,
-                                   best_of=2, **kw)
+                                   best_of=best_of, **kw)
     return res.tokens.numpy(), res.no_speech_prob.numpy()
 
 
@@ -442,9 +442,29 @@ def test_tp_greedy_and_beam_equal_jax(world, jparams, jtree, cache):
                                        atol=1e-5)
 
 
+@pytest.mark.parametrize("best_of", [1, 2])
+def test_dp_tp_sampling_equals_one_process(world, jtree, best_of):
+    """At T=1 each row draws from its stream in the whole batch (after the
+    best_of expansion), so the dp2 x tp2 decode samples the tokens that one
+    process decoding all four rows samples."""
+    states = np.random.default_rng(2).normal(0, 1, (4, CFG.n_audio_ctx, 64)).astype(np.float32)
+    kw = dict(quantize_cross_kv=True, kv_bits=4)
+    out = world.run(case_decode, jtree, states, kw, False, 1.0, best_of)
+    st = decode.SpecialTokens.for_config(CFG)
+    one = dict(kw, sot_sequence=tuple(st.sot_sequence()), max_new_tokens=8, rng_seed=3,
+               best_of=best_of)
+    params = convert.params_from_jax(jtree, "cpu")
+    single = decode.greedy_decode(params, CFG, torch.from_numpy(states), temperature=1.0, **one)
+    greedy = decode.greedy_decode(params, CFG, torch.from_numpy(states), **one)
+    assert not torch.equal(single.tokens, greedy.tokens)  # it did sample
+    for r, (tokens, _) in enumerate(out):
+        d = r // 2
+        np.testing.assert_array_equal(tokens, single.tokens.numpy()[2 * d: 2 * d + 2])
+
+
 def test_tp_ranks_agree_when_sampling(world, jtree):
     """At T>0 the model ranks of a group draw the same tokens (logits are
-    identical after the all-reduce and the generators are seeded alike):
+    identical after the all-reduce and the rows' streams are keyed alike):
     a rank that diverged would desync the collectives."""
     states = np.random.default_rng(2).normal(0, 1, (4, CFG.n_audio_ctx, 64)).astype(np.float32)
     out = world.run(case_decode, jtree, states, dict(quantize_cross_kv=True, kv_bits=4), False, 1.0)

@@ -19,7 +19,10 @@ kernel B's full-head output and its plain version, then worlds of 2
 (dp1 x tp2) and 4 (dp2 x tp2) ranks, one process each (NCCL with a card
 per rank, else gloo with the ranks sharing the card), each holding the
 small config's tokens to the single-card decode and transcribing 4 min at
-whisper-small width.
+whisper-small width.  Kernel B's design probes (#7, #8, #9): every variant
+of the three probes at their default batches held to its plain version,
+then driven as its probe drives it and timed beside its bound, the stream
+floor and SDPA.
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result line, when there is no card, when the port is not beside
@@ -28,6 +31,7 @@ this script, or when any phase or any rank fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -66,9 +70,10 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def sass_i2f(build, name: str) -> int | str:
-    """I2F instructions in the SASS of a built kernel library (cuobjdump
-    beside nvcc), or "not measured" without cuobjdump."""
+def sass_i2f(build, name: str) -> dict | str:
+    """I2F instructions (I2F and I2FP alike) in each kernel, by mangled name,
+    of a built library's SASS (cuobjdump beside nvcc), or "not measured"
+    without cuobjdump."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return "not measured (no cuobjdump beside nvcc)"
@@ -76,7 +81,11 @@ def sass_i2f(build, name: str) -> int | str:
                           capture_output=True, text=True, timeout=120)
     if proc.returncode != 0 or "PRMT" not in proc.stdout:
         fail(f"cuobjdump -sass {name}: {proc.stderr.strip()[-500:]}")
-    return sum("I2F" in ln for ln in proc.stdout.splitlines())  # I2F and I2FP alike
+    counts = {}
+    for part in proc.stdout.split("Function : ")[1:]:
+        fn, body = part.split("\n", 1)
+        counts[fn.strip()] = sum("I2F" in ln for ln in body.splitlines())
+    return counts
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -641,6 +650,90 @@ def phase_cross_attn_tp(dev, kernels) -> dict:
     return out
 
 
+def phase_probes(dev, kernels) -> dict:
+    """Kernel B's design probes (#7, #8, #9) at their default batches: every
+    variant held to its plain version on layers 0 and 11 (exact functions
+    5e-4, bf16 and int8-quantised ones 2e-3, the stream floor bit-equal),
+    then driven as its probe drives it (12 layers a step, the counts zeroed
+    just before and read just after) and timed by the device a call, beside
+    its byte bound, its plain version, the stream floor at its rows a block
+    (``stream_share``) and SDPA on the dequantised bf16 K/V."""
+    from audio_processor_tpu_torch.benchmarks import probe_common as pc
+    from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+    from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
+
+    new = [pa.probe_stream, pa.int4_rows, pa.int8_dot]
+    old = [da.cross_attention_int4_stacked, da.cross_attention_int8]
+    by_name = {c.__name__: c for c in new + old}
+    steps = 4
+    out = {"phase": "probes", "steps_timed": steps, "valid_len": pc.VALID}
+    rows = {c.__name__: [] for c in new}
+    launches = dict.fromkeys(by_name, 0)
+    worst = dict.fromkeys(rows, 0.0)
+    for seed, (probe, batch) in enumerate((("v32", 128), ("v34", 64), ("v4", 64))):
+        table = pc.variants(probe)  # the v34 probe at bb=8, its variants a-e and s
+        if probe == "v32":  # the packed unpack at one row a block: v3.1's A/B partner
+            table["a/bb1"] = dataclasses.replace(pc.variants("v34", bb=1)["a"], label="a/bb1")
+        data = pc.make_inputs(batch, dev, int8=any(v.cache == "int8" for v in table.values()),
+                              seed=20 + seed)
+        errs = {}
+        for x, v in table.items():
+            try:
+                errs[x] = pc.gate(v, data)
+            except AssertionError as exc:
+                fail(f"probes {probe} B={batch}: {exc}")
+        lib = time_ms(pc.sdpa_call(data, "int4"), iters=10)
+        zero_counts(by_name.values())
+        floors: dict = {}
+        for bb, joint in sorted({v.stream for v in table.values()}):
+            floors[(bb, joint)] = pc.device_call_ms(lambda layer, bb=bb, joint=joint: pa.probe_stream(
+                data["q"], data["k4"], data["v4"], layer, bb=bb, joint=joint))
+        res = {}
+        for x, v in table.items():
+            before = by_name[v.kernel].launches
+            res[x] = pc.measure(v, data, steps, floors)
+            res[x]["launches"] = by_name[v.kernel].launches - before
+        for name, c in by_name.items():
+            launches[name] += c.launches
+        for x, v in table.items():
+            k, vc = pc.cache_of(v, data)
+            res[x].update(
+                max_abs_err=errs[x], gate=v.tol if v.tol is not None else "bit-equal",
+                plain_ms=time_ms(lambda v=v, k=k, vc=vc: v.plain(data["q"], k, vc, 0),
+                                 iters=2, warmup=1),
+                library_ms=lib, probe=probe, bb=v.stream[0])
+            if v.kernel in rows:
+                rows[v.kernel].append(res[x])
+                worst[v.kernel] = max(worst[v.kernel], errs[x])
+        out[probe] = {"batch": batch, "library_ms": lib, "stream_floor_ms": {
+            f"bb{bb}{'_joint' if joint else ''}": ms for (bb, joint), ms in floors.items()},
+            "variants": res}
+        del data
+        torch.cuda.empty_cache()
+    if not all(launches[c.__name__] for c in new):
+        fail(f"probes: a kernel of the path never launched: {launches}")
+    out["launches"] = launches
+
+    def entry(name, label, replaces):
+        row = next(r for r in rows[name] if r["label"] == label)
+        return dict(
+            name=name, route="cuda", source="audio_processor_tpu_torch/csrc/cross_attn_probes.cu",
+            replaces=replaces, launches=launches[name], max_abs_err=worst[name],
+            ms=row["call_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None if name == "probe_stream" else row["library_ms"],
+            shape=f"{label} at B={row['batch']}: q (B, 1, 12, 64) f32 vs a layer of the stacked "
+                  f"cache (12, B, 12, ., {pc.TPAD // 2}) int4x2",
+            variants=[{k: r[k] for k in ("probe", "label", "counterpart", "replaces", "batch", "bb",
+                                         "launches", "max_abs_err", "gate", "call_ms", "step_ms",
+                                         "bound_ms", "bound_by", "plain_ms", "library_ms",
+                                         "stream_ms", "stream_share")} for r in rows[name]])
+
+    kernels["probe_stream"] = entry("probe_stream", "s", "benchmarks/kernel_v34_probe.py:264")
+    kernels["int4_rows"] = entry("int4_rows", "v3.1", "benchmarks/kernel_v32_probe.py:117")
+    kernels["int8_dot"] = entry("int8_dot", "v3.3mxu", "benchmarks/kernel_v32_probe.py:56")
+    return out
+
+
 def record_decodes(tr) -> list:
     """Wrap ``tr._run_decode`` so that every decode's tokens (the whole
     slab's, before the no-speech gate) are appended to the returned list."""
@@ -1045,14 +1138,26 @@ def main(argv: list[str] | None = None) -> None:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn"],
-                       ptxas_report=True)
+    logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn",
+                        "cross_attn_probes"], ptxas_report=True)
     # per kernel: its name, then its registers and its spills; kernel B's
     # library must convert nibbles without an int-to-float instruction
     i2f = sass_i2f(build, "cross_attn_int4")
-    if isinstance(i2f, int) and i2f:
-        fail(f"build: cross_attn_int4's SASS holds {i2f} I2F instructions")
+    if isinstance(i2f, dict):
+        i2f = sum(i2f.values())
+        if i2f:
+            fail(f"build: cross_attn_int4's SASS holds {i2f} I2F instructions")
+    # the probes' library: int-to-float only in the byte-wise unpack (v3.1)
+    probe_i2f = sass_i2f(build, "cross_attn_probes")
+    if isinstance(probe_i2f, dict):
+        byte = [k for k in probe_i2f if "int4_rows_kernelILb1E" in k]
+        stray = {k: n for k, n in probe_i2f.items() if n and k not in byte}
+        if len(byte) != 1 or not probe_i2f[byte[0]] or stray:
+            fail(f"build: cross_attn_probes' I2F by kernel {probe_i2f}")
+        probe_i2f = {"byte_unpack": probe_i2f[byte[0]], "other_kernels": sum(probe_i2f.values())
+                     - probe_i2f[byte[0]], "kernels": len(probe_i2f)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "cross_attn_int4_sass_i2f": i2f,
+          "cross_attn_probes_sass_i2f": probe_i2f,
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if any(w in ln for w in ("Function properties", "registers", "spill"))]
                     for k, v in logs.items()}})
@@ -1073,6 +1178,7 @@ def main(argv: list[str] | None = None) -> None:
     emit(phase_encoder_attn(dev, kernels))
     emit(phase_cross_attn_tp(dev, kernels))
     torch.cuda.empty_cache()
+    emit(phase_probes(dev, kernels))
     emit(phase_check(dev))
     # kernels #4 and #5 are on no single-card path: their counters are
     # zeroed and read beside the others

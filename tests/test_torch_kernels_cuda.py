@@ -379,3 +379,133 @@ def test_tp_kernel_rejects_heads_that_do_not_shard(dev):
         da.cross_attention_int4_stacked_tp(mesh, q[:, :, :1].contiguous(), k4[:, :, :1].contiguous(),
                                            v4[:, :, :1].contiguous(), 1, valid_len=200, n_head=5)
     assert da.cross_attention_int4_stacked_tp.launches == before
+
+
+# ---------------------------------------------------------------------------
+# kernel B's design probes (csrc/cross_attn_probes.cu): P1 stream floor, P2
+# int4_rows, P3 int8_dot, each against its plain version
+# ---------------------------------------------------------------------------
+
+def _probe_caches(dev, seed, b, valid, h=12, n_layers=2, tpad=1536):
+    """Stacked int4 and int8 caches of the same ints (as the JAX probe #9
+    builds them) and q (B, 1, H, 64)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k8 = torch.randint(-7, 8, (n_layers, b, h, 64, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-7, 8, (n_layers, b, h, tpad, 64), device=dev, generator=g, dtype=torch.int8)
+    k4, v4 = da.pack_int4_time(k8, v8)
+    return torch.randn(b, 1, h, 64, device=dev, generator=g), k4, v4, k8, v8
+
+
+# (bb, unpack, joint, bf16): v3.1 and i4_bf16 at bb=1 (as their probes run
+# them), a and b-e at bb 1 and 8; exact variants are held to kernel B's
+# 5e-4, bf16 to 2e-3 (one bf16 rounding of P can flip where the card's expf
+# and torch's differ by an ulp)
+_INT4_ROWS_CASES = [(1, "byte", False, False), (1, "packed", False, True),
+                    (1, "packed", False, False), (8, "packed", False, False),
+                    (8, "packed", True, False)]
+
+
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("bb,unpack,joint,bf16", _INT4_ROWS_CASES)
+def test_int4_rows_kernel_matches_plain(dev, b, bb, unpack, joint, bf16):
+    from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
+
+    for valid in (1500, 129):
+        q, k4, v4, _, _ = _probe_caches(dev, b + bb + valid, b, valid)
+        before = pa.int4_rows.launches
+        out = pa.int4_rows(q, k4, v4, 1, valid_len=valid, unpack=unpack, bb=bb, joint=joint,
+                           bf16=bf16)
+        torch.cuda.synchronize()
+        assert pa.int4_rows.launches == before + 1
+        ref = pa.int4_rows_reference(q, k4, v4, 1, valid_len=valid, bf16=bf16)
+        assert (out - ref).abs().max().item() <= (2e-3 if bf16 else 5e-4)
+
+
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("bb,joint", [(1, False), (8, False), (8, True)])
+def test_probe_stream_kernel_equals_plain(dev, b, bb, joint):
+    """The stream floor's checksum is bit-equal to its plain version, and
+    its tickets are left at 0 (a repeat, after a call of another grid, is
+    bit-equal too)."""
+    from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
+
+    q, k4, v4, _, _ = _probe_caches(dev, b + bb, b, 1500)
+    before = pa.probe_stream.launches
+    out = pa.probe_stream(q, k4, v4, 1, bb=bb, joint=joint)
+    other = pa.probe_stream(q[:4].contiguous(), k4[:, :4].contiguous(), v4[:, :4].contiguous(), 0)
+    again = pa.probe_stream(q, k4, v4, 1, bb=bb, joint=joint)
+    torch.cuda.synchronize()
+    assert pa.probe_stream.launches == before + 3
+    assert torch.equal(out, pa.probe_stream_reference(q, k4, v4, 1))
+    assert torch.equal(again, out)
+    assert torch.equal(other, pa.probe_stream_reference(q[:4], k4[:, :4], v4[:, :4], 0))
+
+
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("cache,pv", [("int4", "int8"), ("int8", "int8"), ("int8", "f32")])
+def test_int8_dot_kernel_matches_plain(dev, b, cache, pv):
+    """q row-quantised to int8, dp4a products: within 2e-3 integer units of
+    the plain version (a p8 rounding can flip on an ulp of expf)."""
+    from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
+
+    for valid in (1500, 129):
+        q, k4, v4, k8, v8 = _probe_caches(dev, 3 * b + valid, b, valid)
+        kc, vc = (k4, v4) if cache == "int4" else (k8, v8)
+        before = pa.int8_dot.launches
+        out = pa.int8_dot(q, kc, vc, 1, valid_len=valid, cache=cache, pv=pv)
+        torch.cuda.synchronize()
+        assert pa.int8_dot.launches == before + 1
+        ref = pa.int8_dot_reference(q, kc, vc, 1, valid_len=valid, cache=cache, pv=pv)
+        assert (out - ref).abs().max().item() <= 2e-3
+
+
+def test_probe_kernels_convert_with_int_to_float_only_in_the_byte_unpack(dev):
+    """cuobjdump -sass of the probes' library: I2F appears in the byte-wise
+    unpack's instantiation of int4_rows (v3.1) and in no other kernel."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from audio_processor_tpu_torch.ops.kernels import build
+
+    tool = next((p for p in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump")
+                 if p and os.path.exists(p)), None)
+    if tool is None:
+        pytest.skip("cuobjdump is not installed beside nvcc")
+    build.load("cross_attn_probes")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("cross_attn_probes"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        counts[name.strip()] = sum("I2F" in ln for ln in body.splitlines())
+    byte = [n for n in counts if "int4_rows_kernelILb1E" in n]
+    assert len(counts) >= 19 and len(byte) == 1, sorted(counts)
+    assert all(counts[n] > 0 for n in byte)
+    assert not {n: c for n, c in counts.items() if c and n not in byte}
+
+
+def test_probe_wrappers_reject_bad_inputs(dev):
+    from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
+
+    q, k4, v4, k8, v8 = _probe_caches(dev, 5, 8, 1500, h=2)
+    before = (pa.probe_stream.launches, pa.int4_rows.launches, pa.int8_dot.launches)
+    with pytest.raises(ValueError):  # bb does not divide B
+        pa.int4_rows(q[:6].contiguous(), k4[:, :6].contiguous(), v4[:, :6].contiguous(), 0,
+                     valid_len=1500, bb=4)
+    with pytest.raises(ValueError):  # not instantiated
+        pa.int4_rows(q, k4, v4, 0, valid_len=1500, unpack="byte", bb=8)
+    with pytest.raises(ValueError):  # Tq > 1
+        pa.int8_dot(q.expand(8, 2, 2, 64).contiguous(), k4, v4, 0, valid_len=1500)
+    with pytest.raises(ValueError):  # Dh 32
+        pa.probe_stream(q[..., :32].contiguous(), k4[:, :, :, :32].contiguous(),
+                        v4[..., :32].contiguous(), 0)
+    with pytest.raises(ValueError):  # Tpad/2 = 96
+        pa.int4_rows(q, k4[..., :96].contiguous(), v4[..., :96, :].contiguous(), 0,
+                     valid_len=100)
+    with pytest.raises(ValueError):  # the int8 cache past its length
+        pa.int8_dot(q, k8, v8, 0, valid_len=1537, cache="int8")
+    with pytest.raises(ValueError):
+        pa.int8_dot(q, k4, v4, 0, valid_len=1500, cache="int4", pv="f32")
+    assert (pa.probe_stream.launches, pa.int4_rows.launches, pa.int8_dot.launches) == before

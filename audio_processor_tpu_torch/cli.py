@@ -4,9 +4,12 @@
     python -m audio_processor_tpu_torch.cli transcribe meeting.wav \\
         --npz small.npz --device cuda --beam 5 --condition
 
+    python -m audio_processor_tpu_torch.cli diarize meeting.wav --json
+
 Without --npz the weights are random (seeded): the flow runs end to end,
-the text is meaningless.  --device defaults to the card; --device cpu runs
-the plain PyTorch path.
+the text is meaningless.  ``diarize`` serves the repo's bundled
+synthetic-pretrained nets (random weights when they are absent).
+--device defaults to the card; --device cpu runs the plain PyTorch path.
 
 Sharded serving, one process a rank (``torchrun`` sets the topology; rank 0
 prints the result):
@@ -67,6 +70,35 @@ def cmd_transcribe(args) -> None:
     print(f"-- {out['duration']:.1f}s audio, {out['rtf_x']:.1f}x realtime", file=sys.stderr)
 
 
+def cmd_diarize(args) -> None:
+    from .models.diarization import checkpoint, embedding
+    from .pipeline import ingest
+    from .pipeline.diarize import Diarizer
+
+    kw = {"device": args.device}
+    if args.min_cluster_size:
+        kw["min_cluster_size"] = args.min_cluster_size
+    if args.embedding_path:
+        tree, emb_cfg = checkpoint.load_embedding_params(args.embedding_path)
+        kw.update(emb_params=embedding.params_from_jax(tree, emb_cfg), emb_cfg=emb_cfg)
+    if args.segmentation_path:
+        d = Diarizer.from_tpu_segmentation(args.segmentation_path, **kw)
+    else:
+        # the serving default ladder: the bundled checkpoints, else random weights
+        d = Diarizer.bundled(**kw) or Diarizer.random_init(**kw)
+    turns = d.diarize(
+        ingest.load_audio(args.audio),
+        num_speakers=args.num_speakers,
+        min_speakers=args.min_speakers,
+        max_speakers=args.max_speakers,
+    )
+    if args.json:
+        print(json.dumps(turns, indent=2))
+    else:
+        for t in turns:
+            print(f"[{t['start']:8.2f} – {t['end']:8.2f}] {t['speaker']}")
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="audio_processor_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -99,6 +131,27 @@ def main(argv: list[str] | None = None) -> None:
                    help="serve on a (data, model) mesh over the ranks torchrun (or the "
                    "APTPU_* env) starts, heads split over this many ranks")
     t.set_defaults(fn=cmd_transcribe)
+
+    d = sub.add_parser("diarize", help="diarize an audio file")
+    d.add_argument("--segmentation-path", dest="segmentation_path",
+                   help="trained TPU-first segmentation .npz (the JAX package's "
+                   "train-segmentation)")
+    d.add_argument("audio")
+    d.add_argument("--json", action="store_true")
+    d.add_argument("--embedding-path", dest="embedding_path",
+                   help="trained speaker-embedding .npz (the JAX package's train-embedding)")
+    d.add_argument("--min-cluster-size", dest="min_cluster_size", type=int, default=0,
+                   help="dissolve speaker clusters with fewer crops than this "
+                   "(pyannote-3.1's min_cluster_size; 0 = off)")
+    d.add_argument("--num-speakers", dest="num_speakers", type=int,
+                   help="exact speaker count (pyannote's num_speakers; "
+                   "exclusive with --min/--max-speakers)")
+    d.add_argument("--min-speakers", dest="min_speakers", type=int,
+                   help="lower bound on the speaker count")
+    d.add_argument("--max-speakers", dest="max_speakers", type=int,
+                   help="upper bound on the speaker count")
+    d.add_argument("--device", default=None, help="cuda (default) or cpu")
+    d.set_defaults(fn=cmd_diarize)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -131,6 +131,102 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     return log_spec.transpose(-1, -2).reshape(*lead, n_mels, n_frames)
 
 
+def frame_signal(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """Overlapping 400-sample frames at hop 160: audio (..., n_samples) ->
+    (..., n_frames, N_FFT), zero-padded at the end where the signal is
+    short.  Frame f is the 80-sample blocks [2f, 2f+5), taken as five
+    stride-2 slices, as the JAX frontend does (``frontend.py:115``)."""
+    block = HOP_LENGTH // 2  # 80
+    needed = (2 * n_frames + 3) * block  # last frame spans blocks [2f, 2f+5)
+    pad = (-audio.shape[-1]) % block
+    if pad or audio.shape[-1] < needed:
+        audio = F.pad(audio, (0, max(pad, needed - audio.shape[-1])))
+    blocks = audio[..., : (audio.shape[-1] // block) * block]
+    blocks = blocks.reshape(*audio.shape[:-1], -1, block)
+    parts = [blocks[..., k : k + 2 * n_frames : 2, :] for k in range(5)]
+    return torch.cat(parts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Resampling (polyphase conv1d)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _resample_kernel(up: int, down: int, num_taps_per_phase: int = 16) -> np.ndarray:
+    """Kaiser-windowed sinc anti-aliasing lowpass for rational resampling
+    (the JAX frontend's filter, ``frontend.py:193``)."""
+    cutoff = 0.5 / max(up, down)
+    half = num_taps_per_phase * max(up, down) // 2
+    n = np.arange(-half, half + 1, dtype=np.float64)
+    sinc = 2 * cutoff * np.sinc(2 * cutoff * n)
+    window = np.kaiser(len(n), beta=8.555)
+    return (sinc * window * up).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _polyphase_bank(up: int, down: int) -> tuple[np.ndarray, int]:
+    """The JAX resampler's taps regrouped by output phase.
+
+    JAX computes y[i] = sum_j P[i*down + j] * rhs[j], with P the input
+    zero-stuffed by ``up`` and left-padded by ``half``, and rhs the
+    reversed filter (``frontend.py:203-235``).  Only the taps that meet
+    a real sample add anything: for output i = up*a + r they are
+    rhs[up*k + half - r*down] against x[a*down + k].  Row r of the bank
+    holds them for k = kmin .. kmin + L - 1 (zero where out of range),
+    so y[up*a + r] is a strided correlation of x, left-padded by -kmin,
+    with row r.  Returns (bank (up, L) float32, kmin)."""
+    rhs = _resample_kernel(up, down)[::-1]
+    half = len(rhs) // 2
+    kmin = -(half // up)  # ceil(-half / up)
+    kmax = (len(rhs) - 1 + (up - 1) * down - half) // up
+    bank = np.zeros((up, kmax - kmin + 1), np.float32)
+    for r in range(up):
+        k = np.arange(kmin, kmax + 1)
+        j = up * k + half - r * down
+        ok = (j >= 0) & (j < len(rhs))
+        bank[r, ok] = rhs[j[ok]]
+    return bank, kmin
+
+
+def resample(audio: torch.Tensor, orig_sr: int, target_sr: int = SAMPLE_RATE) -> torch.Tensor:
+    """Rational-rate resample: audio (n,) float32 -> (ceil(n * target /
+    orig),) float32, on audio's device.
+
+    The JAX frontend (``frontend.py:203``) zero-stuffs by ``up`` and runs
+    one strided FIR conv; here the stuffed zeros are never built (they
+    would take n * up floats: 160 a sample from 44.1 kHz).  The filter is
+    split into ``up`` phases (``_polyphase_bank``) and one conv1d with
+    stride ``down`` and one output channel a phase reads the original
+    samples: each output is the JAX sum without its zero terms.  The
+    output length is JAX's ceil, which its ``pad_r`` rule guarantees
+    there (``frontend.py:227-229``); samples past the end read zeros in
+    both."""
+    if orig_sr == target_sr:
+        return audio
+    g = math.gcd(orig_sr, target_sr)
+    up, down = target_sr // g, orig_sr // g
+    n = audio.shape[-1]
+    n_out = -(-n * up // down)  # ceil
+    bank_np, kmin = _polyphase_bank(up, down)
+    bank = torch.from_numpy(bank_np).to(audio.device)[:, None, :]  # (up, 1, L)
+    n_groups = -(-n_out // up)  # outputs a phase
+    width = (n_groups - 1) * down + bank.shape[-1]
+    x = audio.to(torch.float32).reshape(1, 1, n)
+    x = F.pad(x, (-kmin, max(0, width + kmin - n)))[..., :width]
+    y = F.conv1d(x, bank, stride=down)  # (1, up, n_groups): y[0, r, a] = out[up*a + r]
+    return y[0].transpose(0, 1).reshape(-1)[:n_out]
+
+
+def resample_host(audio: np.ndarray, orig_sr: int, target_sr: int = SAMPLE_RATE,
+                  device: "torch.device | str" = "cpu") -> np.ndarray:
+    """``resample`` of a host array, computed on ``device``; float32 back on
+    the host (where the pipelines trim, window and slab it)."""
+    if orig_sr == target_sr:
+        return np.asarray(audio, np.float32)
+    x = torch.from_numpy(np.asarray(audio, np.float32)).to(device)
+    return resample(x, orig_sr, target_sr).cpu().numpy()
+
+
 def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES) -> torch.Tensor:
     """Pad with zeros / trim the last axis to a fixed window length."""
     n = audio.shape[-1]

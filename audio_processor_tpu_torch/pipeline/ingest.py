@@ -1,11 +1,11 @@
-"""Audio ingest: numpy arrays, 16 kHz WAV, or any container via ffmpeg.
+"""Audio ingest: numpy arrays, WAV, or any container via ffmpeg.
 
 The port of the JAX package's ``pipeline/ingest.py`` on this slice's
-path.  WAV files at 16 kHz are parsed in-process (``utils.wavio``);
-anything else goes through a host ``ffmpeg`` binary, which resamples to
-16 kHz mono.  The in-process resampler and the native codec decoders are
-not ported yet: without ffmpeg, a WAV at another rate raises
-NotImplementedError.
+path.  WAV files are parsed in-process (``utils.wavio``) and resampled to
+the target rate on the host (``frontend.resample`` on the CPU: ingest is a
+host stage, as in the JAX package's ``_resample_np``); anything else goes
+through a host ``ffmpeg`` binary, which resamples to 16 kHz mono.  The
+native codec decoders are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import subprocess
 
 import numpy as np
 
+from ..ops import frontend
 from ..utils import wavio
 
 TARGET_SR = 16_000
@@ -31,22 +32,17 @@ def load_audio(
     seconds when given)."""
     ext = os.path.splitext(path)[1].lower()
     wav_error: Exception | None = None
-    wav_rate = None
     if ext in (".wav", ".wave"):
         try:
-            samples, wav_rate = wavio.read_wav_mono(path, max_s=max_s)
+            # cap at the source rate (read_wav slices before conversion)
+            samples, rate = wavio.read_wav_mono(path, max_s=max_s)
         except ValueError as exc:
             wav_error = exc
         else:
-            if wav_rate == target_sr:
-                return samples.astype(np.float32)
+            out = frontend.resample_host(samples, rate, target_sr)
+            return out if max_s is None else out[: int(max_s * target_sr)]
     if ffmpeg_available():
         return _load_via_ffmpeg(path, target_sr, max_s=max_s)
-    if wav_rate is not None:
-        raise NotImplementedError(
-            f"{path!r} is {wav_rate} Hz: resampling needs a host ffmpeg "
-            "(the in-process resampler is not ported yet)"
-        )
     if wav_error is not None:
         raise ValueError(f"cannot decode {path!r}: {wav_error}") from wav_error
     raise ValueError(f"cannot decode {path!r}: not a WAV file and no ffmpeg on host")

@@ -13,8 +13,10 @@ by the window length plus one decode.
     for seg in st.flush():               # final partial window
         print(seg)
 
-Input is 16 kHz: resampling is not ported yet, and another sample_rate
-raises NotImplementedError at construction.
+The buffer holds source-rate samples; windows are cut in the raw
+timeline and resampled whole (one contiguous resample a window), so no
+filter edge lands at a feed() block boundary and the clock does not
+drift by a block's rounding.
 """
 from __future__ import annotations
 
@@ -74,17 +76,15 @@ class StreamingTranscriber:
     _prev_words: list = field(default_factory=list)
     _emitted_words: list = field(default_factory=list)  # this window's output
 
-    def __post_init__(self):
-        if self.sample_rate != 16_000:
-            raise NotImplementedError(
-                f"sample_rate={self.sample_rate}: resampling is not ported yet; "
-                "stream 16 kHz audio"
-            )
-
     @property
     def _chunk_src(self) -> int:
-        """One decode window in samples."""
+        """One decode window in source-rate samples."""
         return int(round(WINDOW_S * self.sample_rate))
+
+    def _to_16k(self, samples: np.ndarray) -> np.ndarray:
+        if self.sample_rate == 16_000:
+            return np.asarray(samples, np.float32)
+        return frontend.resample_host(samples, self.sample_rate, device=self.transcriber.device)
 
     def feed(self, samples: np.ndarray) -> list[dict]:
         """Append audio; return segments as they finalise.
@@ -125,7 +125,7 @@ class StreamingTranscriber:
 
     def _segments_of(self, audio: np.ndarray) -> list[dict]:
         out = self.transcriber.transcribe(
-            np.asarray(audio, np.float32), remove_silence=False, sample_rate=16_000
+            self._to_16k(audio), remove_silence=False, sample_rate=16_000
         )
         return out["segments"]
 

@@ -10,7 +10,8 @@ over the int4 cross-KV cache by default, or beam search, prompted by
 previous windows' text in window groups.  Option defaults are the JAX
 package's.  Options that belong to later slices of the port raise
 NotImplementedError at construction.  ``transcribe_batch`` packs the
-windows of several recordings into shared slabs.
+windows of several recordings into shared slabs.  Audio at another rate
+than 16 kHz is resampled on the device (``ops/frontend.resample``).
 
 Slabs run one after another: PyTorch queues the card's work
 asynchronously, and the decode loop reads back one flag per token.
@@ -890,20 +891,18 @@ class Transcriber:
         progress: Callable[[float], None] | None = None,
         on_segment: Callable[[dict], None] | None = None,
     ) -> dict:
-        """Full transcription of arbitrary-length mono 16 kHz audio (or a
-        path).  Returns {"text", "segments", "duration", "rtf_x"[,
-        "language"]}, timestamps in the ORIGINAL timeline even when
-        silence was removed or clips were selected."""
+        """Full transcription of arbitrary-length mono audio at
+        ``sample_rate`` (resampled to 16 kHz on the device) or a path.
+        Returns {"text", "segments", "duration", "rtf_x"[, "language"]},
+        timestamps in the ORIGINAL timeline even when silence was removed
+        or clips were selected."""
         t0 = time.perf_counter()
         audio, sample_rate = ingest.load_if_path(audio, sample_rate)
-        if sample_rate != 16_000:
-            raise NotImplementedError(
-                f"sample_rate={sample_rate}: resampling is not ported yet; "
-                "pass 16 kHz audio or a file path (decoded at 16 kHz)"
-            )
         audio = np.asarray(audio)
         self._active_language = None  # re-detected per call
         duration_s = len(audio) / sample_rate
+        if sample_rate != 16_000:
+            audio = frontend.resample_host(audio, sample_rate, device=self.device)
 
         if clip_timestamps and time_map is not None:
             raise ValueError(
@@ -1162,13 +1161,10 @@ class Transcriber:
         n_chunks_per: list[int] = []
         for audio in audios:
             audio, sr = ingest.load_if_path(audio, sample_rate)
-            if sr != 16_000:
-                raise NotImplementedError(
-                    f"sample_rate={sr}: resampling is not ported yet; pass 16 kHz "
-                    "audio or file paths (decoded at 16 kHz)"
-                )
             audio = np.asarray(audio, np.float32)
             duration_s = len(audio) / sr
+            if sr != 16_000:
+                audio = frontend.resample_host(audio, sr, device=self.device)
             if remove_silence and len(audio) > 2 * 16_000:
                 audio, intervals = frontend.trim_silence_host(audio)
                 time_map = TimeMap(intervals)

@@ -1,12 +1,19 @@
 """Trim-time mapping: silence-trimmed timeline -> original recording.
 
-A copy of the JAX package's ``utils/timestamps.py`` (TimeMap and
-compose_intervals): the port imports nothing from that package.
+A copy of the JAX package's ``utils/timestamps.py`` (TimeMap,
+compose_intervals and format_timestamp): the port imports nothing from
+that package.
 """
 from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass, field
+
+
+def format_timestamp(seconds: float) -> str:
+    """Seconds -> 'HH:MM:SS'."""
+    s = max(0, int(round(seconds)))
+    return f"{s // 3600:02d}:{(s % 3600) // 60:02d}:{s % 60:02d}"
 
 
 @dataclass

@@ -22,7 +22,12 @@ small config's tokens to the single-card decode and transcribing 4 min at
 whisper-small width.  Kernel B's design probes (#7, #8, #9): every variant
 of the three probes at their default batches held to its plain version,
 then driven as its probe drives it and timed beside its bound, the stream
-floor and SDPA.
+floor and SDPA.  Diarization, last: kernel A on the segmentation net's
+10 s and 6 s windows at a slab of 128, the bundled Diarizer on the card
+against the CPU in float32 and against the JAX suite's quality gates at
+its bf16 default, fusion of the card's and the CPU's turns, then a 30 min
+4-speaker meeting through ``Diarizer.bundled()`` and through the configs'
+published widths, timed stage by stage.
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result line, when there is no card, when the port is not beside
@@ -147,6 +152,50 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def library_log_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """torch.stft-based Whisper log-mel: kernel A's yardstick, never used by
+    the port."""
+    from audio_processor_tpu_torch.ops import frontend
+
+    window = torch.hann_window(frontend.N_FFT, device=audio.device)
+    filters = torch.from_numpy(frontend.mel_filterbank(n_mels)).to(audio.device)
+    spec = torch.stft(audio, frontend.N_FFT, frontend.HOP_LENGTH, window=window,
+                      center=True, pad_mode="reflect", return_complex=True)
+    mel = filters @ spec[..., :-1].abs().square()
+    log_spec = torch.clamp(mel, min=1e-10).log10()
+    log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+    return (log_spec + 4.0) / 4.0
+
+
+def log_mel_bounds(rows: int, n: int) -> tuple[float, str, float, float]:
+    """(function bound, its limit, DFT-as-matmul bound, four-step bound) in
+    ms for ``rows`` windows of ``n`` samples at 80 mels.  Bytes: audio in
+    and log-mel out once a window, the kernel's tables once a call."""
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import four_step_tables
+
+    frames = n // frontend.HOP_LENGTH
+    n_fft, n_freqs = frontend.N_FFT, frontend.N_FREQS
+    tables = four_step_tables(80)
+    nbytes = rows * (4 * n + 4 * frames * 80) + sum(a.nbytes for a in tables.values())
+    # operations the function needs: per frame, the window multiply, a
+    # real FFT (2.5 N log2 N, half a complex FFT's 5 N log2 N), power (3
+    # a bin), the mel projection (2 a non-zero of the filterbank: the
+    # zeros add nothing) and the log and clamp (3 a mel)
+    per_frame = (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs
+                 + 2 * tables["weights"].size + 3 * 80)
+    fn_ms, by = bound_ms(nbytes, rows * frames * per_frame)
+    # the TPU kernel's algorithm (this kernel's first port): the DFT as two matmuls
+    # against the (400, 201) bases, about 8x the operations of the FFT
+    dft = rows * frames * (2 * 2 * n_fft * n_freqs + 2 * n_freqs * 80)
+    # this kernel's: stage 1 (20 n2 x 11 k1 x 20 n1, re and im), stage 2
+    # (201 kept bins x 20 n2, a complex multiply-add each), power, the
+    # sparse mel (the filters' non-zeros) and the log and clamp
+    four = rows * frames * (2 * 2 * 20 * 11 * 20 + 8 * n_freqs * 20 + 3 * n_freqs
+                            + 2 * tables["weights"].size + 3 * 80)
+    return fn_ms, by, bound_ms(nbytes, dft)[0], bound_ms(nbytes, four)[0]
+
+
 def speech_like(seconds: float, seed: int) -> np.ndarray:
     """Seeded synthetic 'speech': AM-modulated harmonics, noise, pauses."""
     rng = np.random.default_rng(seed)
@@ -165,7 +214,7 @@ def speech_like(seconds: float, seed: int) -> np.ndarray:
 
 def phase_log_mel(dev, kernels) -> dict:
     from audio_processor_tpu_torch.ops import frontend
-    from audio_processor_tpu_torch.ops.kernels.log_mel import four_step_tables, log_mel
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 
     g = torch.Generator(device=dev).manual_seed(0)
     b, n = 8, frontend.N_SAMPLES
@@ -181,44 +230,14 @@ def phase_log_mel(dev, kernels) -> dict:
             fail(f"log_mel n_mels={n_mels}: max abs err {err} > 1e-4 or bad shape")
         out[f"max_abs_err_{n_mels}"] = err
 
-    window = torch.hann_window(frontend.N_FFT, device=dev)
-    filters = torch.from_numpy(frontend.mel_filterbank(80)).to(dev)
-
-    def library():  # torch.stft-based log-mel: the yardstick, never used by the port
-        spec = torch.stft(audio, frontend.N_FFT, frontend.HOP_LENGTH, window=window,
-                          center=True, pad_mode="reflect", return_complex=True)
-        mel = filters @ spec[..., :-1].abs().square()
-        log_spec = torch.clamp(mel, min=1e-10).log10()
-        log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
-        return (log_spec + 4.0) / 4.0
+    def library():
+        return library_log_mel(audio)
 
     lib_err = (library() - frontend.log_mel_spectrogram(audio, 80)).abs().max().item()
     frames = n // frontend.HOP_LENGTH
-    n_fft, n_freqs = frontend.N_FFT, frontend.N_FREQS
-    tables = four_step_tables(80)
-    table_bytes = sum(a.nbytes for a in tables.values())
 
     def bounds(rows):
-        """(function bound, its limit, DFT-as-matmul bound, four-step bound)
-        in ms for ``rows`` windows at 80 mels.  Bytes: audio in and log-mel
-        out once a window, the kernel's tables once a call."""
-        nbytes = rows * (4 * n + 4 * frames * 80) + table_bytes
-        # operations the function needs: per frame, the window multiply, a
-        # real FFT (2.5 N log2 N, half a complex FFT's 5 N log2 N), power (3
-        # a bin), the mel projection (2 a non-zero of the filterbank: the
-        # zeros add nothing) and the log and clamp (3 a mel)
-        per_frame = (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs
-                     + 2 * tables["weights"].size + 3 * 80)
-        fn_ms, by = bound_ms(nbytes, rows * frames * per_frame)
-        # the TPU kernel's algorithm (this kernel's first port): the DFT as two matmuls
-        # against the (400, 201) bases, about 8x the operations of the FFT
-        dft = rows * frames * (2 * 2 * n_fft * n_freqs + 2 * n_freqs * 80)
-        # this kernel's: stage 1 (20 n2 x 11 k1 x 20 n1, re and im), stage 2
-        # (201 kept bins x 20 n2, a complex multiply-add each), power, the
-        # sparse mel (the filters' non-zeros) and the log and clamp
-        four = rows * frames * (2 * 2 * 20 * 11 * 20 + 8 * n_freqs * 20 + 3 * n_freqs
-                                + 2 * tables["weights"].size + 3 * 80)
-        return fn_ms, by, bound_ms(nbytes, dft)[0], bound_ms(nbytes, four)[0]
+        return log_mel_bounds(rows, n)
 
     bms, by, dft_bms, four_bms = bounds(b)
     ms = time_ms(lambda: log_mel(audio, 80), iters=20)
@@ -1108,6 +1127,226 @@ def profile_decode(fn, unprofiled_ms: float) -> dict | str:
     }
 
 
+def make_meeting(rng, f0s, duration_s: float, sr: int = 16_000) -> tuple[np.ndarray, list]:
+    """The JAX suite's held-out meeting generator (``tests/test_bundled_diarizer.py``)
+    on the port's ``synth_voice``: speakers in rotation, turns of 1.2-2 s,
+    gaps of 0.3-0.6 s, a 0.003 noise floor.  Returns (audio, reference turns)."""
+    from audio_processor_tpu_torch.models.diarization.checkpoint import synth_voice
+
+    audio = rng.normal(0, 0.003, int(duration_s * sr)).astype(np.float32)
+    ref = []
+    t, i = 0.3, 0
+    while t < duration_s - 2.0:
+        spk = i % len(f0s)
+        dur = float(rng.uniform(1.2, 2.0))
+        a, b = int(t * sr), int(min(t + dur, duration_s) * sr)
+        audio[a:b] += synth_voice(rng, f0s[spk], b - a, sr)
+        ref.append({"start": round(t, 3), "end": round(t + dur, 3), "speaker": f"REF_{spk}"})
+        t += dur + float(rng.uniform(0.3, 0.6))
+        i += 1
+    return audio, ref
+
+
+def timed_diarize(d, audio: np.ndarray) -> tuple[list, dict]:
+    """``d.diarize(audio)`` with the wall seconds of its stages: windows +
+    segmentation (the slabs come back to the host, so the card is done),
+    crop gather (host), embedding (the slabs come back), clustering (host
+    AHC), stitch + binarise (host).  The stages are read by wrapping the
+    Diarizer's two net calls and the clustering function for this call."""
+    from audio_processor_tpu_torch.models.diarization import clustering
+
+    marks: dict = {}
+    seg_all, embed_all, cluster = d._segment_all, d._embed_all, clustering.agglomerative_cluster
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            marks[name + "_start"] = time.perf_counter()
+            res = fn(*args, **kw)
+            marks[name + "_end"] = time.perf_counter()
+            marks[name + "_rows"] = len(args[0])
+            return res
+        return run
+
+    d._segment_all, d._embed_all = wrap("segment", seg_all), wrap("embed", embed_all)
+    clustering.agglomerative_cluster = wrap("cluster", cluster)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        turns = d.diarize(audio)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        del d._segment_all, d._embed_all
+        clustering.agglomerative_cluster = cluster
+    if "cluster_end" not in marks:
+        fail(f"diarize: no speech reached the embedding net ({len(turns)} turns)")
+    return turns, {
+        "total_s": t1 - t0, "windows": marks["segment_rows"], "crops": marks["embed_rows"],
+        "windows_segment_s": marks["segment_end"] - t0,
+        "crop_gather_s": marks["embed_start"] - marks["segment_end"],
+        "embed_s": marks["embed_end"] - marks["embed_start"],
+        "cluster_s": marks["cluster_end"] - marks["cluster_start"],
+        "stitch_binarize_s": t1 - marks["cluster_end"],
+    }
+
+
+DIARIZE_MEETING_S = 1800.0
+DIARIZE_SLAB = 128  # the Diarizer's max_batch
+
+
+def phase_diarize(dev, kernels) -> dict:
+    """Diarization on the card: kernel A at the two segmentation windows;
+    the bundled Diarizer against the port's CPU path in float32; the JAX
+    suite's quality gates at the bundled default (bf16 convs); fusion of
+    card and CPU turns; then a 30 min 4-speaker meeting through
+    ``Diarizer.bundled()`` at its defaults (stage walls, kernel A's
+    launches, peak memory, busy share, DER printed) and through the
+    configs' published widths with random weights and onset 0 (every
+    (window, speaker) pair a crop: the embedding stage's most work)."""
+    from audio_processor_tpu_torch.models.diarization import embedding as emb_lib
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+    from audio_processor_tpu_torch.pipeline.fuse import fuse_segments
+    from audio_processor_tpu_torch.utils.metrics import (
+        diarization_error_rate,
+        diarization_error_rate_detailed,
+    )
+
+    slab, meeting_s = DIARIZE_SLAB, DIARIZE_MEETING_S
+    out: dict = {"phase": "diarize"}
+    # kernel A at the windows it sees here: 10 s (the published config) and
+    # 6 s (the bundled checkpoint), a slab of 128 with a zero-padded (silent)
+    # row and quiet rows
+    g = torch.Generator(device=dev).manual_seed(8)
+    for label, n in (("10s", 160_000), ("6s", 96_000)):
+        audio = torch.randn(slab, n, device=dev, generator=g) * 0.2
+        audio[::9] *= 1e-3
+        audio[-1] = 0.0
+        got = log_mel(audio, 80)
+        torch.cuda.synchronize()
+        ref = frontend.log_mel_spectrogram(audio, 80)
+        err = (got - ref).abs().max().item()
+        if not (got.shape == ref.shape == (slab, 80, n // 160) and err <= 1e-4):
+            fail(f"diarize: log_mel at ({slab}, {n}): max abs err {err} > 1e-4 or bad shape")
+        bms, by, _, _ = log_mel_bounds(slab, n)
+        out[f"log_mel_{label}"] = {
+            "shape": [slab, n], "max_abs_err": err, "ms": time_ms(lambda: log_mel(audio, 80), 20),
+            "plain_ms": time_ms(lambda: frontend.log_mel_spectrogram(audio, 80), 3),
+            "library_ms": time_ms(lambda: library_log_mel(audio), 5),
+            "bound_ms": bms, "bound_by": by,
+        }
+        del audio, got, ref
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: bundled weights, float32 convs, the JAX
+    # suite's first held-out 20 s 3-speaker meeting (rng 13579, 2 s step)
+    rng = np.random.default_rng(13579)
+    meetings = []
+    for _ in range(2):
+        f0s = (float(rng.uniform(95, 120)), float(rng.uniform(190, 240)),
+               float(rng.uniform(320, 378)))
+        meetings.append(make_meeting(rng, f0s, 20.0))
+    res = {}
+    for where in ("cpu", dev):
+        d = Diarizer.bundled(window_step_s=2.0, device=where)
+        seen: dict = {}
+
+        def embed_f32(crops, d=d, seen=seen):
+            seen["crops"] = crops
+            seen["emb"] = d._batched(crops, lambda x: emb_lib.embed_crops(
+                d.emb_params, d.emb_cfg, x, compute_dtype=torch.float32))
+            return seen["emb"]
+
+        d._embed_all = embed_f32
+        turns = d.diarize(meetings[0][0])
+        res[where] = (d, turns, d._segment_all(d._windows(meetings[0][0])[0]), seen)
+    d_cpu, cpu_turns, cpu_probs, _ = res["cpu"]
+    d_card, card_turns, card_probs, card_seen = res[dev]
+    if {p.device for net in (d_card.seg_params, d_card.emb_params) for p in net.parameters()} != {dev}:
+        fail("diarize: the card's Diarizer holds its nets off the card")
+    seg_err = float(np.abs(card_probs - cpu_probs).max())
+    emb_cpu = d_cpu._embed_all(card_seen["crops"])  # the card's crops, embedded on the CPU
+    cos = float((emb_cpu * card_seen["emb"]).sum(axis=1).min())
+    if not (seg_err <= 1e-4 and cos >= 0.9999 and card_turns == cpu_turns and card_turns):
+        fail(f"diarize: card vs CPU (f32): segmentation max abs err {seg_err}, embedding "
+             f"min cosine {cos}, turns equal {card_turns == cpu_turns} ({len(card_turns)} turns)")
+    rows = [{"start": float(t), "end": float(t) + 1.7, "text": f"row {i}"}
+            for i, t in enumerate(np.arange(0.0, 20.0, 1.3))]
+    fused_equal = fuse_segments(rows, card_turns, 0.5) == fuse_segments(rows, cpu_turns, 0.5)
+    if not fused_equal:
+        fail("diarize: fuse_segments on the card's turns differs from the CPU's")
+    out["vs_cpu_f32"] = {"segmentation_max_abs_err": seg_err, "embedding_min_cosine": cos,
+                         "turns_equal": True, "turns": len(card_turns),
+                         "crops": len(card_seen["crops"]), "fused_equal": fused_equal}
+    del res, d_cpu, d_card
+
+    # quality on the card at the bundled default (bf16 convs): the JAX suite's gates
+    d = Diarizer.bundled(window_step_s=2.0, device=dev)
+    ders = [diarization_error_rate(ref, d.diarize(a), collar_s=0.25) for a, ref in meetings]
+    rng = np.random.default_rng(24680)
+    f0s = tuple(float(f) for f in np.exp(np.linspace(np.log(100), np.log(360), 5)))
+    a5, ref5 = make_meeting(rng, f0s, 60.0)
+    det = diarization_error_rate_detailed(ref5, d.diarize(a5), collar_s=0.25)
+    out["quality_bf16"] = {"der_20s": ders, "der_60s_5spk": det}
+    if not (min(ders) <= 0.30 and det["der"] <= 0.45
+            and abs(det["hyp_speakers"] - det["ref_speakers"]) <= 1):
+        fail(f"diarize: quality gates: 20 s DERs {ders} (min must be <= 0.30), 60 s {det}")
+
+    # the realistic run: 30 min, 4 speakers, Diarizer.bundled() at its defaults
+    rng = np.random.default_rng(4)
+    t0 = time.perf_counter()
+    f0s = (float(rng.uniform(95, 120)), float(rng.uniform(150, 185)),
+           float(rng.uniform(220, 270)), float(rng.uniform(320, 378)))
+    audio, ref = make_meeting(rng, f0s, meeting_s)
+    out["meeting"] = {"audio_s": meeting_s, "speakers": 4, "f0s": f0s,
+                      "synthesis_s": time.perf_counter() - t0}
+    for name, make in (
+        ("bundled", lambda: Diarizer.bundled(device=dev)),
+        ("published_widths_random_onset0",
+         lambda: Diarizer.random_init(segmentation="tpu", device=dev, onset=0.0)),
+    ):
+        d = make()
+        cold, cold_st = timed_diarize(d, audio)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts([log_mel])
+        warm, st = timed_diarize(d, audio)
+        launches = read_counts([log_mel], (), f"diarize {name}")
+        entry = {
+            "window_s": d.seg_cfg.window_s, "window_step_s": d.window_step_s,
+            "seg": f"d={d.seg_cfg.d_model} heads={d.seg_cfg.n_head} layers={d.seg_cfg.n_layer}",
+            "emb": f"base={d.emb_cfg.base_channels} blocks={list(d.emb_cfg.blocks)} "
+                   f"dim={d.emb_cfg.embed_dim} crop_s={d.emb_cfg.crop_s}",
+            "cold_s": cold_st["total_s"], "warm_rtf_x": meeting_s / st["total_s"],
+            "stages": st, "slabs": launches["log_mel"], "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "turns": len(warm), "speakers": len({t["speaker"] for t in warm}),
+            "warm_equals_cold": warm == cold,
+        }
+        for t in warm:
+            if not (0.0 <= t["start"] <= t["end"] <= meeting_s + 1e-6):
+                fail(f"diarize {name}: bad turn {t}")
+        if name == "bundled":
+            if not warm:
+                fail("diarize bundled: no turns on the 30 min meeting")
+            entry["der"] = diarization_error_rate_detailed(ref, warm, collar_s=0.25)
+            entry["profile"] = profile_decode(lambda: d.diarize(audio), 1e3 * st["total_s"])
+        out[name] = entry
+        del d
+        torch.cuda.empty_cache()
+
+    k = kernels["log_mel"]
+    k["max_abs_err"] = max(k["max_abs_err"], out["log_mel_10s"]["max_abs_err"],
+                           out["log_mel_6s"]["max_abs_err"])
+    k["launches_diarize"] = out["bundled"]["launches"]["log_mel"]
+    k["launches_diarize_published_widths"] = out["published_widths_random_onset0"]["launches"]["log_mel"]
+    for label in ("10s", "6s"):
+        r = out[f"log_mel_{label}"]
+        k.update({f"ms_{label}_b128": r["ms"], f"plain_ms_{label}_b128": r["plain_ms"],
+                  f"library_ms_{label}_b128": r["library_ms"], f"bound_ms_{label}_b128": r["bound_ms"]})
+    return out
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tp-only", action="store_true",
@@ -1206,6 +1445,9 @@ def main(argv: list[str] | None = None) -> None:
     kernels["cross_attn_int8"]["launches"] = int8["launches"]["cross_attention_int8"]
     emit(phase_bench(dev, tr, bs=32, n_timed=2, profile=False, decoder="beam5",
                      counters=[cross_attention_int4_stacked]))
+    del tr
+    torch.cuda.empty_cache()
+    emit(phase_diarize(dev, kernels))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": list(kernels.values())})

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: A (log-mel), B (int4 cross-attention, stacked and single-layer), #5
+card: A (log-mel, on Whisper's 30 s windows and the diarizer's 10 s and
+6 s ones), B (int4 cross-attention, stacked and single-layer), #5
 (kernel B on a model rank's heads), the int8 cross-attention and the
-encoder self-attention; and the decodes that run them (greedy,
-int8-kernel greedy, beam) against the CPU's tokens.
+encoder self-attention; and the paths that run them (greedy, int8-kernel
+greedy and beam decodes, the bundled Diarizer) against the CPU's
+results.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  This file imports neither jax nor the JAX package,
@@ -64,6 +66,56 @@ def test_log_mel_kernel_matches_plain_at_bench_batch(dev, n_mels):
     ref = frontend.log_mel_spectrogram(audio, n_mels)
     assert out.shape == ref.shape == (128, n_mels, frontend.N_FRAMES)
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n_samples", [160_000, 96_000])
+def test_log_mel_kernel_at_diarization_windows(dev, n_samples):
+    """The segmentation net's windows: 10 s (the published config) and 6 s
+    (the bundled checkpoint), one row all zeros as a zero-padded slab row
+    is (every bin at the floor, the peak-8 clamp a no-op)."""
+    g = torch.Generator(device=dev).manual_seed(n_samples)
+    audio = torch.randn(2, n_samples, device=dev, generator=g) * 0.2
+    audio[1] = 0.0
+    before = log_mel.launches
+    out = log_mel(audio, 80)
+    torch.cuda.synchronize()
+    assert log_mel.launches == before + 1
+    ref = frontend.log_mel_spectrogram(audio, 80)
+    assert out.shape == ref.shape == (2, 80, n_samples // 160)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.all(out[1] == -1.5)
+
+
+def test_diarizer_on_card_matches_cpu(dev, monkeypatch):
+    """The bundled Diarizer on the card against the CPU's plain path, with
+    the embedding convs in float32: equal turns on a 20 s 3-speaker
+    meeting, kernel A launched once a slab."""
+    import functools
+
+    from audio_processor_tpu_torch.models.diarization import embedding as emb
+    from audio_processor_tpu_torch.models.diarization.checkpoint import synth_voice
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+
+    monkeypatch.setattr(emb, "embed_crops",
+                        functools.partial(emb.embed_crops, compute_dtype=torch.float32))
+    rng = np.random.default_rng(13579)
+    audio = rng.normal(0, 0.003, 20 * 16_000).astype(np.float32)
+    t, i = 0.3, 0
+    while t < 18.0:
+        dur = float(rng.uniform(1.2, 2.0))
+        a, b = int(t * 16_000), int(min(t + dur, 20.0) * 16_000)
+        audio[a:b] += synth_voice(rng, (110.0, 220.0, 350.0)[i % 3], b - a, 16_000)
+        t += dur + float(rng.uniform(0.3, 0.6))
+        i += 1
+    cpu = Diarizer.bundled(window_step_s=2.0, device="cpu")
+    card = Diarizer.bundled(window_step_s=2.0, device=dev)
+    windows = card._windows(audio)[0]
+    before = log_mel.launches
+    probs = card._segment_all(windows)
+    assert log_mel.launches == before + 1
+    assert np.abs(probs - cpu._segment_all(windows)).max() <= 1e-4
+    turns = card.diarize(audio)
+    assert turns and turns == cpu.diarize(audio)
 
 
 def test_rewritten_kernels_still_reject_bad_inputs(dev):

@@ -2,10 +2,9 @@
 
 The cases of the JAX package's ``tests/test_streaming.py``: two drive a
 real Transcriber (the port's and JAX's on the same weights) and compare
-the segments; the rest drive both streamers with the same scripted
-transcriber and compare what they emit, with the JAX test's assertions.
-Resampling is not ported, so the source-rate case becomes the check that
-another sample rate raises.
+the segments (one of them on a 32 kHz stream, resampled a window at a
+time); the rest drive both streamers with the same scripted transcriber
+and compare what they emit, with the JAX test's assertions.
 """
 import numpy as np
 import pytest
@@ -195,11 +194,25 @@ def test_feed_buffers_eagerly_without_consuming_result():
         assert len(st._buffer) == 1000
 
 
-def test_other_sample_rates_raise():
-    """JAX's streamer buffers other rates and resamples each window;
-    resampling is not ported yet, so the port refuses at construction."""
-    with pytest.raises(NotImplementedError, match="resampling"):
-        StreamingTranscriber(_Scripted([]), sample_rate=32_000)
+def test_other_sample_rates_raise(pair):
+    """Once a refusal of other rates; now the parity case: a 32 kHz stream
+    buffers at the source rate and resamples each whole window on the
+    device, and its segments equal JAX's streamer's on the same weights
+    (a full window, then the flushed tail)."""
+    jt, pt = pair
+    sr = 32_000
+    js, ps = JStreaming(jt, sample_rate=sr), StreamingTranscriber(pt, sample_rate=sr)
+    rng = np.random.default_rng(2)
+    jsegs, psegs = [], []
+    for _ in range(5):  # 35 s in ragged 7 s blocks
+        block = rng.normal(0, 0.1, 7 * sr).astype(np.float32)
+        jsegs.extend(js.feed(block))
+        psegs.extend(ps.feed(block))
+    assert len(ps._buffer) == len(js._buffer) == 5 * sr
+    jsegs.extend(js.flush())
+    psegs.extend(ps.flush())
+    assert psegs and _texts(psegs) == _texts(jsegs)
+    assert ps._emitted_s == js._emitted_s == pytest.approx(35.0)
 
 
 def test_flush_discarded_tail_advances_clock():

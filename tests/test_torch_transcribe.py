@@ -233,12 +233,23 @@ def test_conditioned_fallback_ladder_runs_on_cpu(pairs, speech_like_audio):
     assert out["segments"] and {s["temperature"] for s in out["segments"]} == {1.0}
 
 
-def test_resample_and_batch_raise(pairs):
-    _, pt = pairs["defaults"]
-    with pytest.raises(NotImplementedError):
-        pt.transcribe(np.zeros(8000, np.float32), sample_rate=8000)
-    with pytest.raises(NotImplementedError):
-        pt.transcribe_batch([np.zeros(8000, np.float32)], sample_rate=8000)
+@pytest.mark.parametrize("rate,n", [(8_000, 48_000), (44_100, 100_000)])
+def test_resample_and_batch_raise(pairs, speech_like_audio, rate, n):
+    """Once a refusal of other rates; now the parity case: 8 kHz and
+    44.1 kHz input resamples on the device, and transcribe and
+    transcribe_batch equal JAX's (which resamples with its frontend).  The
+    44.1 kHz lengths are ones where the JAX reference's dilated conv on
+    XLA:CPU returns the right samples: at some others (160,000) it returns
+    values near 1e33 (``test_torch_fbank.py`` holds those lengths against
+    float64)."""
+    jt, pt = pairs["open"]
+    audio = speech_like_audio[:n]  # read as `rate` samples a second
+    got = pt.transcribe(audio, sample_rate=rate)
+    assert got["segments"] and _summary(got) == _summary(jt.transcribe(audio, sample_rate=rate))
+    batch = [audio, audio[: 60_000]]
+    got = pt.transcribe_batch(batch, sample_rate=rate)
+    want = jt.transcribe_batch(batch, sample_rate=rate)
+    assert [_summary(o) for o in got] == [_summary(o) for o in want]
 
 
 def test_default_device_needs_a_card(monkeypatch):

@@ -1,19 +1,24 @@
 """audio_processor_tpu_torch — the PyTorch / CUDA port for one NVIDIA H100.
 
 A second package beside ``audio_processor_tpu`` (the JAX reference, which
-it never imports).  This slice carries the batched Whisper transcription
-main path: int16 30 s chunks -> fused log-mel (CUDA kernel) -> encoder ->
-int4 cross-KV greedy decode (CUDA kernel for the decode cross-attention)
--> timestamped segments.
+it never imports): the meeting-notes service, whose device stages are
+Whisper transcription (int16 30 s chunks -> fused log-mel (CUDA kernel) ->
+encoder -> int4 cross-KV decode (CUDA kernel for the decode
+cross-attention) -> timestamped segments) and diarization.
 
 Subpackages
 -----------
-runtime      Device resolution (CUDA unless the caller asks for the CPU).
-ops          Log-mel frontend and the hand-written Hopper kernels
-             (``ops/kernels``; CUDA C++ sources under ``csrc/``).
-models       Whisper config, tokenizer, checkpoint I/O, encoder, decode.
-pipeline     Ingest and the ``Transcriber``.
-utils        WAV I/O and the trim-time map.
+runtime       Device resolution (CUDA unless the caller asks for the CPU),
+              the device probe, the job store and engine, ``build_services``.
+ops           Log-mel frontend and the hand-written Hopper kernels
+              (``ops/kernels``; CUDA C++ sources under ``csrc/``).
+models        Whisper and the diarization nets.
+parallel      The (data, model) mesh on ``torch.distributed``.
+pipeline      Ingest, the ``Transcriber``, the ``Diarizer``, fusion and the
+              9-stage meeting job.
+integrations  Drive, PDF, Gemini, Notion and the credential store.
+server        The WSGI app: the job API and the OpenAI-compatible ``/v1``.
+utils         WAV I/O, timestamps, metrics, writers, constants.
 """
 
 __version__ = "0.1.0"

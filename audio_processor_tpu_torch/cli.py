@@ -5,10 +5,13 @@
         --npz small.npz --device cuda --beam 5 --condition
 
     python -m audio_processor_tpu_torch.cli diarize meeting.wav --json
+    python -m audio_processor_tpu_torch.cli process meeting.wav --model-path small.npz
 
-Without --npz the weights are random (seeded): the flow runs end to end,
-the text is meaningless.  ``diarize`` serves the repo's bundled
-synthetic-pretrained nets (random weights when they are absent).
+Without --npz (--model-path for ``process``) the weights are random
+(seeded): the flow runs end to end, the text is meaningless.  ``diarize``
+serves the repo's bundled synthetic-pretrained nets (random weights when
+they are absent).  ``process`` runs the full 9-stage meeting job on a local
+file, with no Drive, LLM or Notion, and prints the job's status as JSON.
 --device defaults to the card; --device cpu runs the plain PyTorch path.
 
 Sharded serving, one process a rank (``torchrun`` sets the topology; rank 0
@@ -99,6 +102,41 @@ def cmd_diarize(args) -> None:
             print(f"[{t['start']:8.2f} – {t['end']:8.2f}] {t['speaker']}")
 
 
+def cmd_process(args) -> None:
+    """Run the full 9-stage meeting job on a local file (no SaaS)."""
+    import time
+
+    from .pipeline.diarize import Diarizer
+    from .pipeline.meeting import MeetingProcessor, build_failure_result
+    from .pipeline.transcribe import Transcriber
+    from .runtime.job_engine import JobEngine
+
+    transcriber = (
+        Transcriber.from_npz(args.model_path, tokenizer_path=args.tokenizer, device=args.device)
+        if args.model_path
+        else Transcriber.random_init(args.model, device=args.device)
+    )
+    diarizer = None
+    if not args.no_diarization:
+        diarizer = (Diarizer.bundled(device=args.device)
+                    or Diarizer.random_init(device=args.device))
+    proc = MeetingProcessor(transcriber=transcriber, diarizer=diarizer)
+    engine = JobEngine(max_workers=1)
+    engine.create_job("cli", file_id=args.audio)
+    engine.submit("cli", lambda ctx: proc.process(ctx, args.audio),
+                  failure_result=build_failure_result)
+    while True:
+        st = engine.get_job_status("cli")
+        print(f"\r{st['progress']:3d}% {st.get('message','')}        ",
+              end="", file=sys.stderr)
+        if st["status"] in ("completed", "failed", "cancelled"):
+            break
+        time.sleep(0.3)
+    print(file=sys.stderr)
+    print(json.dumps(st, indent=2))
+    engine.shutdown(wait=False)
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="audio_processor_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -152,6 +190,17 @@ def main(argv: list[str] | None = None) -> None:
                    help="upper bound on the speaker count")
     d.add_argument("--device", default=None, help="cuda (default) or cpu")
     d.set_defaults(fn=cmd_diarize)
+
+    p = sub.add_parser("process", help="full meeting pipeline on a local file")
+    p.add_argument("audio")
+    p.add_argument("--model", default="tiny", help="preset for random weights")
+    p.add_argument("--model-path", dest="model_path",
+                   help="checkpoint converted by the JAX package's convert tool")
+    p.add_argument("--tokenizer", help="tokenizer asset overriding the "
+                   "checkpoint's embedded vocab")
+    p.add_argument("--no-diarization", dest="no_diarization", action="store_true")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_process)
     args = ap.parse_args(argv)
     args.fn(args)
 

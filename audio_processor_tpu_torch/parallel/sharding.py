@@ -91,12 +91,30 @@ def _shard(t: torch.Tensor, split: Split | None, mesh: Mesh) -> torch.Tensor:
     return t.contiguous().to(mesh.device)
 
 
-def shard_params(params: Params, mesh: Mesh, cfg: WhisperConfig) -> Params:
+class ShardedParams(dict):
+    """A parameter tree that already holds one model rank's slices:
+    ``layout`` is (tp, model_rank) of the mesh it was cut for.  A
+    Transcriber rebuilt from it (``dataclasses.replace``) keeps it as it
+    is instead of slicing the slices again."""
+
+    def __init__(self, tree: Params, layout: tuple[int, int]):
+        super().__init__(tree)
+        self.layout = layout
+
+
+def layout_of(mesh: Mesh) -> tuple[int, int]:
+    return (mesh.tp, mesh.model_rank)
+
+
+def shard_params(params: Params, mesh: Mesh, cfg: WhisperConfig) -> ShardedParams:
     """This rank's parameters: its contiguous slice of every split leaf and
     the replicated leaves whole, on the mesh's device."""
+    if isinstance(params, ShardedParams):
+        raise ValueError(f"the parameters are already sharded (tp, model rank) = {params.layout}")
+
     def walk(p, s):
         if isinstance(p, dict):
             return {k: walk(v, s[k]) for k, v in p.items()}
         return _shard(p, s, mesh)
 
-    return walk(params, whisper_param_spec(cfg))
+    return ShardedParams(walk(params, whisper_param_spec(cfg)), layout_of(mesh))

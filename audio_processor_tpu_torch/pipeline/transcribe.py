@@ -50,6 +50,7 @@ from ..models.whisper.tokenizer import (
 from ..ops import frontend
 from ..ops.kernels.log_mel import log_mel
 from ..parallel import mesh as mesh_lib
+from ..parallel import sharding as sharding_lib
 from ..runtime.device import resolve_device
 from ..utils import timestamps as timestamps_lib
 from ..utils.timestamps import TimeMap
@@ -206,12 +207,19 @@ class Transcriber:
                 t = t.to(target)
             return t.to(dev) if tp == 1 else t  # shard_params moves the slices
 
+        # params sharded already (a Transcriber rebuilt by
+        # dataclasses.replace) keep their slices: cut once, never again
+        sharded = isinstance(self.params, sharding_lib.ShardedParams)
+        if sharded and (tp == 1 or self.params.layout != sharding_lib.layout_of(self.mesh)):
+            raise ValueError(f"params sharded for (tp, model rank) {self.params.layout} "
+                             "do not fit this Transcriber's mesh")
+        layout = self.params.layout if sharded else None
         self.params = model_lib.map_params(cast, self.params)
         # tensor-parallel serving: after the storage-dtype cast, each rank
         # keeps its slice of the params (Megatron specs, parallel/sharding)
-        if tp > 1:
-            from ..parallel import sharding as sharding_lib
-
+        if sharded:
+            self.params = sharding_lib.ShardedParams(self.params, layout)
+        elif tp > 1:
             if tp > min(self.cfg.n_audio_head, self.cfg.n_text_head):
                 raise ValueError(f"tp={tp} exceeds the model's heads")
             self.params = sharding_lib.shard_params(self.params, self.mesh, self.cfg)

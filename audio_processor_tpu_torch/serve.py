@@ -1,0 +1,66 @@
+"""Service entry point of the PyTorch port: the meeting-notes server.
+
+Builds the port's service stack (models on the card, job engine on a
+shared sqlite store so several processes share one queue) and runs the
+WSGI app:
+
+    python -m audio_processor_tpu_torch.serve               # dev server on :5000
+    APTPU_MODEL=small python -m audio_processor_tpu_torch.serve --port 8080
+    APTPU_DEVICE=cpu python -m audio_processor_tpu_torch.serve   # the plain path
+
+The models run on the card; ``APTPU_DEVICE=cpu`` is the only way to the
+CPU, and without a card the server refuses to start.
+``application`` is the WSGI callable for a production server
+(``<server> audio_processor_tpu_torch.serve:application``).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import threading
+
+
+def build_app():
+    from .runtime.services import build_services
+    from .server.app import create_app
+
+    services = build_services(
+        model=os.environ.get("APTPU_MODEL", "tiny"),
+        store_url=os.environ.get("JOB_STORE_URL", "sqlite://jobs.db"),
+        max_workers=int(os.environ.get("MAX_WORKERS", "3")),
+        model_path=os.environ.get("APTPU_MODEL_PATH"),
+        device=os.environ.get("APTPU_DEVICE") or None,
+    )
+    return create_app(services)
+
+
+# built lazily on the first request, under a lock: a threaded server fires
+# many first requests at once, and each must not build its own Transcriber
+# (device memory) and JobEngine (duplicate worker pools)
+_wsgi_app = None
+_wsgi_lock = threading.Lock()
+
+
+def application(environ, start_response):
+    global _wsgi_app
+    if _wsgi_app is None:
+        with _wsgi_lock:
+            if _wsgi_app is None:
+                _wsgi_app = build_app()
+    return _wsgi_app(environ, start_response)
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(prog="audio_processor_tpu_torch.serve")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=int(os.environ.get("PORT", 5000)))
+    args = ap.parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
+    )
+    build_app().run(host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

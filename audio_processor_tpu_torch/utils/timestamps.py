@@ -1,12 +1,13 @@
-"""Trim-time mapping: silence-trimmed timeline -> original recording.
+"""Timestamp utilities: HH:MM:SS, filename dates, trim-time mapping.
 
 A copy of the JAX package's ``utils/timestamps.py`` (TimeMap,
-compose_intervals and format_timestamp): the port imports nothing from
-that package.
+compose_intervals, format_timestamp and extract_date_from_filename): the
+port imports nothing from that package.
 """
 from __future__ import annotations
 
 import bisect
+import re
 from dataclasses import dataclass, field
 
 
@@ -14,6 +15,25 @@ def format_timestamp(seconds: float) -> str:
     """Seconds -> 'HH:MM:SS'."""
     s = max(0, int(round(seconds)))
     return f"{s // 3600:02d}:{(s % 3600) // 60:02d}:{s % 60:02d}"
+
+
+_DATE_PATTERNS = (
+    re.compile(r"REC_(\d{4})(\d{2})(\d{2})_\d{6}"),   # REC_YYYYMMDD_HHMMSS
+    re.compile(r"\[(\d{4})-(\d{2})-(\d{2})\]"),        # [YYYY-MM-DD]
+    re.compile(r"(\d{4})-(\d{2})-(\d{2})"),            # bare YYYY-MM-DD
+)
+
+
+def extract_date_from_filename(filename: str) -> str | None:
+    """Pull a YYYY-MM-DD date out of a recording filename:
+    REC_YYYYMMDD_HHMMSS, [YYYY-MM-DD] or a bare YYYY-MM-DD."""
+    for pat in _DATE_PATTERNS:
+        m = pat.search(filename)
+        if m:
+            y, mo, d = m.groups()
+            if 1970 <= int(y) <= 2100 and 1 <= int(mo) <= 12 and 1 <= int(d) <= 31:
+                return f"{y}-{mo}-{d}"
+    return None
 
 
 @dataclass

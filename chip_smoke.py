@@ -22,7 +22,11 @@ small config's tokens to the single-card decode and transcribing 4 min at
 whisper-small width.  Kernel B's design probes (#7, #8, #9): every variant
 of the three probes at their default batches held to its plain version,
 then driven as its probe drives it and timed beside its bound, the stream
-floor and SDPA.  Diarization, last: kernel A on the segmentation net's
+floor and SDPA.  The service (``serve``): ``build_services`` at whisper-small
+width with the bundled diarizer, ``create_app`` on a local port, three
+2 min meetings through the job API at once (all 9 stages, one job held to
+direct calls, kernels A and B counted), four concurrent ``/v1`` uploads
+through the dynamic batcher.  Diarization, last: kernel A on the segmentation net's
 10 s and 6 s windows at a slab of 128, the bundled Diarizer on the card
 against the CPU in float32 and against the JAX suite's quality gates at
 its bf16 default, fusion of the card's and the CPU's turns, then a 30 min
@@ -1190,6 +1194,344 @@ def timed_diarize(d, audio: np.ndarray) -> tuple[list, dict]:
     }
 
 
+# ---------------------------------------------------------------------------
+# serve: the meeting-notes service over HTTP
+# ---------------------------------------------------------------------------
+
+SERVE_MODEL = "small"
+SERVE_MEETING_S = 120.0
+SERVE_JOB_SEEDS = (4, 5, 6)
+SERVE_V1_S = (30.0, 40.0, 50.0, 60.0)
+# the job's stage marks (JobContext.stage messages): the 9 stages, stage 4
+# in two marks (decode, then transcribe + diarize + fuse)
+SERVE_STAGES = (
+    "Fetching file metadata...", "Downloading attachments...", "Downloading audio file...",
+    "Decoding audio...", "Transcribing on the device...", "Identifying speakers...",
+    "Building transcript...", "Generating summary...", "Creating Notion page...",
+    "Organizing Drive files...",
+)
+
+
+def fake_gemini_http(prompts: list):
+    """A Gemini transport that answers each of the job's three prompts
+    (speaker names, summary, notes) as the API would, recording them."""
+    def http(url, headers, payload, timeout):
+        prompt = payload["contents"][0]["parts"][0]["text"]
+        prompts.append(prompt)
+        if "mapping each speaker code" in prompt:
+            text = '{"SPEAKER_00": "Alice", "SPEAKER_01": "Bob"}'
+        elif '"todos"' in prompt:
+            text = json.dumps({"title": "Weekly sync", "summary": "We planned the week.",
+                               "todos": ["ship the port"]})
+        else:
+            text = "# Notes\n- point one"
+        return 200, {"candidates": [{"content": {"parts": [{"text": text}]}}]}
+
+    return http
+
+
+def fake_notion_http(calls: list):
+    """A Notion transport that creates the page and accepts its blocks."""
+    def http(method, url, headers, payload, timeout):
+        calls.append((method, url))
+        if method == "POST" and url.endswith("/pages"):
+            return 200, {"id": "page-7", "url": "https://notion.so/page-7"}
+        return 200, {}
+
+    return http
+
+
+def http_call(method: str, url: str, body=None, ctype: str = "application/json"):
+    """One request to the local server, no proxy; returns (status, JSON or text)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if isinstance(body, dict) else body
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": ctype} if data is not None else {})
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=900) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode()
+
+
+def multipart(fields: dict, filename: str, payload: bytes) -> tuple[bytes, str]:
+    boundary = "chipsmoke7"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                 f'filename="{filename}"\r\nContent-Type: audio/wav\r\n\r\n'.encode()
+                 + payload + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_serve(dev, card: str) -> tuple[dict, dict]:
+    """The port's service on the card, over real HTTP: ``build_services``
+    at whisper-small width (random weights, seed 0) with the bundled
+    diarizer, an sqlite store and 2 job workers, Gemini and Notion on fake
+    transports; ``create_app`` served from a thread.  Three 2 min 4-speaker
+    meetings go through ``POST /api/process`` at once and are polled to
+    the end (every stage timed; one job's decoded tokens, turns and fused
+    segments held to direct calls on the same audio; kernels A and B
+    counted); then 4 concurrent ``/v1`` uploads, which must coalesce and
+    each equal its own ``transcribe``, an srt request and the word
+    granularity's 400.  The jobs run again under the profiler for the
+    card's busy share."""
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+    from wsgiref.simple_server import WSGIRequestHandler
+
+    from audio_processor_tpu_torch.integrations.gemini import GeminiClient
+    from audio_processor_tpu_torch.integrations.notion import NotionClient
+    from audio_processor_tpu_torch.ops.kernels.decode_attention import cross_attention_int4_stacked
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+    from audio_processor_tpu_torch.pipeline import ingest
+    from audio_processor_tpu_torch.pipeline.fuse import fuse_segments, relabel_speakers
+    from audio_processor_tpu_torch.runtime.services import build_services
+    from audio_processor_tpu_torch.server import openai_api
+    from audio_processor_tpu_torch.server.app import create_app
+    from audio_processor_tpu_torch.utils import wavio
+
+    counters = [log_mel, cross_attention_int4_stacked]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    saved_env = {k: os.environ.get(k) for k in ("CREDENTIAL_STORE_URL", "APTPU_DYNAMIC_BATCH_WAIT_MS")}
+    os.environ["CREDENTIAL_STORE_URL"] = "memory://"
+    # the dev server logs every request to stderr: the polls would bury the log
+    log_request = WSGIRequestHandler.log_message
+    WSGIRequestHandler.log_message = lambda self, *a: None
+    svc = app = server = None
+    out: dict = {"phase": "serve", "card": card, "model": f"{SERVE_MODEL} (random weights, seed 0)"}
+    try:
+        t0 = time.perf_counter()
+        svc = build_services(model=SERVE_MODEL, store_url=f"sqlite://{tmp}/jobs.db", max_workers=2,
+                             with_drive=False, with_llm=False, device=dev)
+        out["init_s"] = time.perf_counter() - t0
+        proc = svc.processor
+        tr, d = proc.transcriber, proc.diarizer
+        if tr.device != dev:
+            fail(f"serve: the Transcriber is on {tr.device}, not {dev}")
+        if d is None or d.provenance != "bundled-synthetic":
+            fail(f"serve: the served diarizer is not the bundled one: {d and d.provenance}")
+        prompts, notion_calls = [], []
+        proc.gemini = GeminiClient(api_key="k", http=fake_gemini_http(prompts))
+        proc.notion = NotionClient(token="t", database_id="db", http=fake_notion_http(notion_calls),
+                                   batch_pause_s=0)
+        # per job: every decode's tokens and the diarizer's turns, keyed by
+        # the job the worker thread runs
+        job_of = threading.local()
+        decodes: dict = {}
+        turns_of: dict = {}
+        run_decode, diarize, process = tr._run_decode, d.diarize, proc.process
+
+        def rec_decode(*a, **kw):
+            res = run_decode(*a, **kw)
+            decodes.setdefault(getattr(job_of, "id", None), []).append(res.tokens.cpu().numpy())
+            return res
+
+        def rec_diarize(*a, **kw):
+            turns_of[getattr(job_of, "id", None)] = turns = diarize(*a, **kw)
+            return turns
+
+        def rec_process(ctx, *a, **kw):
+            job_of.id = ctx.job_id
+            try:
+                return process(ctx, *a, **kw)
+            finally:
+                job_of.id = None
+
+        tr._run_decode, d.diarize, proc.process = rec_decode, rec_diarize, rec_process
+
+        app = create_app(svc, secret_key="chip-smoke")
+        port = free_port()
+        server = threading.Thread(target=app.run, kwargs=dict(host="127.0.0.1", port=port),
+                                  daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{port}"
+        for _ in range(100):
+            try:
+                if http_call("GET", base + "/api/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        else:
+            fail("serve: the server never answered /api/health")
+
+        wavs = {}
+        for seed in SERVE_JOB_SEEDS:
+            rng = np.random.default_rng(seed)
+            f0s = (float(rng.uniform(95, 120)), float(rng.uniform(150, 185)),
+                   float(rng.uniform(220, 270)), float(rng.uniform(320, 378)))
+            audio, _ = make_meeting(rng, f0s, SERVE_MEETING_S)
+            wavs[seed] = os.path.join(tmp, f"REC_2026061{seed}_093000.wav")
+            wavio.write_wav(wavs[seed], audio, 16_000)
+
+        def run_jobs() -> tuple[dict, dict, float]:
+            """Submit every meeting at once, poll each to its end; returns
+            (job ids, (client wall s, final status) by seed, wall s of all)."""
+            ids, t_sub, done = {}, {}, {}
+            t_all = time.perf_counter()
+            for seed, path in wavs.items():
+                status, data = http_call("POST", base + "/api/process", {"file_id": path})
+                if status != 200 or not data.get("success"):
+                    fail(f"serve: POST /api/process answered {status}: {data}")
+                ids[seed], t_sub[seed] = data["job_id"], time.perf_counter()
+            deadline = time.perf_counter() + 600
+            while len(done) < len(ids):
+                for seed, jid in ids.items():
+                    if seed not in done:
+                        status, data = http_call("GET", f"{base}/api/job/{jid}")
+                        if data["job"]["status"] in ("completed", "failed", "cancelled"):
+                            done[seed] = (time.perf_counter() - t_sub[seed], data["job"])
+                if time.perf_counter() > deadline:
+                    fail(f"serve: jobs still running after 600 s: {sorted(set(ids) - set(done))}")
+                time.sleep(0.1)
+            return ids, done, time.perf_counter() - t_all
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        ids, done, wall_all = run_jobs()
+        torch.cuda.synchronize()
+        launches = read_counts(counters, (), "serve jobs")
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stage_walls: dict = {s: [] for s in SERVE_STAGES}
+        for seed, (wall, job) in done.items():
+            res = job.get("result") or {}
+            if not (job["status"] == "completed" and job["progress"] == 100 and res.get("success")
+                    and res.get("diarizer") == "bundled-synthetic"
+                    and res.get("notion_page_id") == "page-7"):
+                fail(f"serve: job {seed} ended {job['status']}: {job.get('error')} {res}")
+            stages = svc.engine.store.get(ids[seed]).get("stage_timings") or {}
+            if set(stages) != set(SERVE_STAGES):
+                fail(f"serve: job {seed} timed the stages {sorted(stages)}")
+            for s in SERVE_STAGES:
+                stage_walls[s].append(stages[s])
+        results = {seed: done[seed][1]["result"] for seed in done}
+        out["jobs"] = {
+            "count": len(done), "audio_s": SERVE_MEETING_S, "speakers": 4, "workers": 2,
+            "wall_s": [done[s][0] for s in SERVE_JOB_SEEDS],
+            "processing_s": [results[s]["processing_s"] for s in SERVE_JOB_SEEDS],
+            "rtf_x": [results[s]["rtf_x"] for s in SERVE_JOB_SEEDS],
+            "wall_s_median": statistics.median(done[s][0] for s in SERVE_JOB_SEEDS),
+            "rtf_x_median": statistics.median(results[s]["rtf_x"] for s in SERVE_JOB_SEEDS),
+            "all_three_wall_s": wall_all,
+            "stage_s_median": {s: statistics.median(v) for s, v in stage_walls.items()},
+            "segments": [len(results[s]["segments"]) for s in SERVE_JOB_SEEDS],
+            "decode_rows": [sum(len(t) for t in decodes.get(ids[s], [])) for s in SERVE_JOB_SEEDS],
+            "turns": [len(turns_of.get(ids[s], [])) for s in SERVE_JOB_SEEDS],
+            "gemini_prompts": len(prompts), "notion_requests": len(notion_calls),
+        }
+        out["launches_jobs"] = launches
+
+        # one job against direct calls on the same audio, on the card
+        seed = SERVE_JOB_SEEDS[0]
+        jid = ids[seed]
+        audio = ingest.load_audio(wavs[seed])
+        job_of.id = "direct"
+        direct = tr.transcribe(audio)
+        direct_turns = d.diarize(audio)
+        job_of.id = None
+        job_tokens, direct_tokens = decodes.get(jid, []), decodes.get("direct", [])
+        tokens_equal = bool(job_tokens) and len(job_tokens) == len(direct_tokens) and all(
+            np.array_equal(a, b) for a, b in zip(job_tokens, direct_tokens))
+        fused = relabel_speakers(fuse_segments(direct["segments"], direct_turns),
+                                 results[seed]["identified_speakers"])
+        out["job_vs_direct"] = {"tokens_equal": tokens_equal,
+                                "turns_equal": turns_of.get(jid) == direct_turns,
+                                "segments_equal": fused == results[seed]["segments"],
+                                "decodes": len(job_tokens), "turns": len(direct_turns)}
+        if not (tokens_equal and direct_turns and all(out["job_vs_direct"].values())):
+            fail(f"serve: job {seed} differs from the direct calls: {out['job_vs_direct']}")
+
+        # /v1: 4 concurrent uploads through the dynamic batcher
+        os.environ["APTPU_DYNAMIC_BATCH_WAIT_MS"] = "50"
+        openai_api._batch_stats.update(batches=0, files=0)
+        clips = []
+        for i, secs in enumerate(SERVE_V1_S):
+            path = os.path.join(tmp, f"v1_{i}.wav")
+            wavio.write_wav(path, speech_like(secs, 20 + i), 16_000)
+            with open(path, "rb") as f:
+                clips.append((path, f.read()))
+        bodies = [multipart({}, os.path.basename(p), b) for p, b in clips]
+        v1 = [None] * len(bodies)
+        barrier = threading.Barrier(len(bodies))
+
+        def upload(i):
+            barrier.wait()
+            v1[i] = http_call("POST", base + "/v1/audio/transcriptions", *bodies[i])
+
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=upload, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        v1_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        v1_launches = read_counts(counters, (), "serve /v1")
+        stats = openai_api.dynamic_batch_stats()
+        if not all(r and r[0] == 200 for r in v1):
+            fail(f"serve: /v1 uploads answered {[r and r[0] for r in v1]}")
+        if not (stats["batches"] >= 1 and stats["files"] > stats["batches"]):
+            fail(f"serve: the /v1 uploads did not coalesce: {stats}")
+        os.environ["APTPU_DYNAMIC_BATCH_WAIT_MS"] = "0"
+        own = [tr.transcribe(ingest.load_audio(p))["text"].strip() for p, _ in clips]
+        if [r[1]["text"] for r in v1] != own:
+            fail("serve: a /v1 text differs from its own transcribe")
+        srt_status, srt = http_call("POST", base + "/v1/audio/transcriptions",
+                                    *multipart({"response_format": "srt"}, "a.wav", clips[0][1]))
+        if srt_status != 200 or not isinstance(srt, str):
+            fail(f"serve: the srt request answered {srt_status}")
+        status, word = http_call("POST", base + "/v1/audio/transcriptions", *multipart(
+            {"response_format": "verbose_json", "timestamp_granularities[]": "word"},
+            "a.wav", clips[0][1]))
+        if status != 400 or word["error"]["param"] != "timestamp_granularities":
+            fail(f"serve: the word granularity answered {status}: {word}")
+        out["v1"] = {"uploads": len(clips), "audio_s": list(SERVE_V1_S), "wall_s": v1_wall,
+                     "batch_stats": stats, "texts_equal_own_transcribe": True,
+                     "srt_status": srt_status, "word_status": status,
+                     "word_message": word["error"]["message"]}
+        out["launches_v1"] = v1_launches
+
+        # the same three jobs again, under the profiler: the card's busy share
+        out["profile_jobs"] = profile_decode(lambda: run_jobs(), 1e3 * wall_all)
+        if isinstance(out["profile_jobs"], dict):
+            out["device_busy_share"] = out["profile_jobs"]["device_busy_share"]
+        return out, {"log_mel": launches["log_mel"],
+                     "cross_attn_int4": launches["cross_attention_int4_stacked"]}
+    finally:
+        if app is not None:
+            app.shutdown()
+        if server is not None:
+            server.join(timeout=30)
+        if svc is not None:
+            svc.engine.shutdown(wait=True)
+        WSGIRequestHandler.log_message = log_request
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 DIARIZE_MEETING_S = 1800.0
 DIARIZE_SLAB = 128  # the Diarizer's max_batch
 
@@ -1447,6 +1789,10 @@ def main(argv: list[str] | None = None) -> None:
                      counters=[cross_attention_int4_stacked]))
     del tr
     torch.cuda.empty_cache()
+    serve, serve_launches = phase_serve(dev, card)
+    emit(serve)
+    for name, n in serve_launches.items():
+        kernels[name]["launches_serve"] = n
     emit(phase_diarize(dev, kernels))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -158,8 +158,12 @@ def test_hard_decode_is_powerset_argmax(monkeypatch):
     """A frame whose marginal P(spk0) = 0.55 crosses the onset while the
     argmax class is 'no speech': the soft decode says active, the hard
     decode (pyannote's to_multilabel) says silent, as in JAX.  JAX's
-    ``segment_windows`` is jitted afresh here, so that its trace reads the
-    patched ``forward`` and not a cached one."""
+    ``segment_windows`` is traced afresh here, so that its trace reads the
+    patched ``forward`` and not a cached one: JAX caches a function's trace
+    by the function object, so re-jitting ``__wrapped__`` itself would reuse
+    the trace another test made of it (``tests/test_diarization.py`` traces
+    it at the same shapes with its own fake logits); a new function that
+    calls it has no trace yet."""
     cfg = seg.SegmentationConfig()
     member = seg.powerset_matrix(cfg)
     p = np.full(len(member), 1e-6)
@@ -168,7 +172,10 @@ def test_hard_decode_is_powerset_argmax(monkeypatch):
     soft = seg.decode_powerset(torch.from_numpy(logits), cfg).numpy()
     hard = seg.decode_powerset(torch.from_numpy(logits), cfg, hard=True).numpy()
     monkeypatch.setattr(jseg, "forward", lambda params, c, audio: jnp.asarray(logits))
-    fresh = jax.jit(jseg.segment_windows.__wrapped__, static_argnames=("cfg", "hard"))
+    def segment_windows(params, cfg, audio, hard=False):
+        return jseg.segment_windows.__wrapped__(params, cfg, audio, hard=hard)
+
+    fresh = jax.jit(segment_windows, static_argnames=("cfg", "hard"))
     jcfg = jseg.SegmentationConfig()
     jsoft = np.asarray(fresh({}, jcfg, jnp.zeros((1, 16_000))))
     jhard = np.asarray(fresh({}, jcfg, jnp.zeros((1, 16_000)), hard=True))

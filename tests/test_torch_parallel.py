@@ -599,3 +599,67 @@ def test_transcriber_retry_ladder_on_a_mesh(world):
     assert out[0] and {s["temperature"] for s in out[0]} == {1.0}
     for segs in out[1:]:
         assert segs == out[0]
+
+
+# ---------------------------------------------------------------------------
+# dataclasses.replace on a model-parallel Transcriber keeps its shard
+# ---------------------------------------------------------------------------
+
+def _shapes(params) -> list:
+    out = []
+    model.map_params(lambda t: out.append(tuple(t.shape)), params)
+    return out
+
+
+@pytest.mark.parametrize("name", ["test", "small"])
+@pytest.mark.parametrize("model_rank", [0, 1])
+def test_replace_keeps_sharded_params(name, model_rank):
+    """``dataclasses.replace`` runs ``__post_init__`` again: the params it
+    is handed are this rank's slices already, and must stay as they are
+    (they used to be sliced a second time: ``ValueError: axis 2 of size
+    128 is not 256 equal blocks`` at the test config)."""
+    import dataclasses
+
+    m = mesh_lib.Mesh(1, 2, 0, model_rank, torch.device("cpu"), None, None)
+    t = Transcriber.random_init(name, mesh=m, device="cpu")
+    before = _shapes(t.params)
+    r = dataclasses.replace(t, temperature=0.5)
+    assert _shapes(r.params) == before
+    assert r.params.layout == t.params.layout == (2, model_rank)
+    # the shard's heads: half of the model's on this rank
+    q_w = r.params["decoder"]["blocks"]["attn"]["q"]["w"]
+    assert q_w.shape[-1] == r.cfg.n_text_state // 2
+    # a replaced copy shares the weights (nothing is cast or moved again)
+    assert r.params["decoder"]["token_emb"] is t.params["decoder"]["token_emb"]
+    with pytest.raises(ValueError, match="already sharded"):
+        sharding.shard_params(r.params, m, r.cfg)
+    other = mesh_lib.Mesh(1, 2, 0, 1 - model_rank, torch.device("cpu"), None, None)
+    with pytest.raises(ValueError, match="do not fit"):
+        dataclasses.replace(t, mesh=other)
+    with pytest.raises(ValueError, match="do not fit"):
+        dataclasses.replace(t, mesh=None)
+
+
+def case_replace_decode(tree, cfg_dims, audio):
+    import dataclasses
+
+    t = Transcriber(params=convert.params_from_jax(tree, "cpu"), cfg=WhisperConfig(**cfg_dims),
+                    mesh=_mesh(2), tokenizer=LetterTokenizer(), **ASR_KW)
+    r = dataclasses.replace(t, best_of=3, condition_group_size=4)  # no effect at T=0
+    return [x.transcribe(audio, remove_silence=False)["segments"] for x in (t, r)]
+
+
+def test_replaced_transcriber_decodes_the_same_tokens_on_dp1_tp2():
+    """On a gloo world of 2 ranks (dp1 x tp2), a Transcriber rebuilt by
+    ``dataclasses.replace`` decodes the tokens of the original."""
+    _, tree, dims = _jax_transcriber("test", None)
+    audio = np.random.default_rng(8).normal(0, 0.1, 35 * 16_000).astype(np.float32)
+    w = World(2)
+    try:
+        out = w.run(case_replace_decode, tree, dims, audio)
+    finally:
+        w.close()
+    for orig, replaced in out:
+        assert orig and [s["tokens"] for s in replaced] == [s["tokens"] for s in orig]
+        assert replaced == orig
+    assert out[0] == out[1]

@@ -23,7 +23,7 @@ class WhisperConfig:
     n_text_head: int = 6
     n_text_layer: int = 4
     # cross-attention heads that track the audio timeline, as (layer, head)
-    # pairs (word-timestamp alignment, a later slice); carried through
+    # pairs (word-timestamp alignment, models/whisper/align.py); carried through
     # checkpoint I/O so a converted .npz round-trips unchanged
     alignment_heads: tuple[tuple[int, int], ...] | None = None
 

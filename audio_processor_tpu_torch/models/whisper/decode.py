@@ -200,7 +200,7 @@ def space_blank_token_id(tokenizer, st: SpecialTokens) -> int | None:
 
 @dataclass
 class Cache:
-    self_k: torch.Tensor  # (L, B, H, T_max, Dh), written in place
+    self_k: torch.Tensor  # (L, B, H, T_max, Dh), written in place; int8 when quantized
     self_v: torch.Tensor
     # float: (L, B, Ta, H, Dh); int8: (L, B, Ta, H, Dh); int8 kernel
     # layout: K (L, B, H, Dh, Tpad), V (L, B, H, Tpad, Dh); int4 kernel
@@ -210,6 +210,11 @@ class Cache:
     cross_k_scale: torch.Tensor | None = None  # (L, B, 1, H, Dh)
     cross_v_scale: torch.Tensor | None = None
     cross_bits: int = 8  # precision of a quantized cross cache: 8 or 4
+    # per-token scales of the int8 self cache (L, B, H, T_max, 1): each new
+    # token is quantized over its channels when it is written, K's scale
+    # folds into the scores after QK^T and V's into the probabilities
+    self_k_scale: torch.Tensor | None = None
+    self_v_scale: torch.Tensor | None = None
 
 
 def _cross_kv(bp: Params, n_head: int, audio_states: torch.Tensor):
@@ -252,9 +257,13 @@ def init_cache(
     kernel_layout: bool = False,
     kv_bits: int = 8,
     mesh=None,
+    quantize_self_kv: bool = False,
 ) -> Cache:
     """Preallocate the self cache and precompute the cross cache, for the
     heads of this model rank under a mesh.
+
+    quantize_self_kv: the self cache is int8 with a float32 scale per
+    (layer, row, head, token), written by ``decoder_forward_cached``.
 
     quantize_cross_kv: int8 per (layer, batch, head, channel).  With
     kernel_layout the cache is transposed to K (L, B, H, Dh, Tpad) and V
@@ -270,12 +279,19 @@ def init_cache(
     dh = cfg.n_text_state // cfg.n_text_head  # the model's head width under any split
     dev = audio_states.device
     shape = (n_layer, b, h, max_len, dh)
-    self_k = torch.zeros(shape, dtype=dtype, device=dev)
-    self_v = torch.zeros(shape, dtype=dtype, device=dev)
+    self_dtype = torch.int8 if quantize_self_kv else dtype
+    self_k = torch.zeros(shape, dtype=self_dtype, device=dev)
+    self_v = torch.zeros(shape, dtype=self_dtype, device=dev)
+    scales = {}
+    if quantize_self_kv:
+        scales = dict(
+            self_k_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=dev),
+            self_v_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=dev),
+        )
     audio = audio_states.to(dtype)
     if not quantize_cross_kv:
         ck, cv = precompute_cross_attn(params, cfg, audio, mesh)
-        return Cache(self_k, self_v, ck.to(dtype), cv.to(dtype))
+        return Cache(self_k, self_v, ck.to(dtype), cv.to(dtype), **scales)
     bits = kv_bits if kernel_layout else 8
     if bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
@@ -304,22 +320,29 @@ def init_cache(
                 k8, v8 = pack_int4_time(k8, v8)
         ck[l] = k8
         cv[l] = v8
-    return Cache(self_k, self_v, ck, cv, ks, vs, cross_bits=bits)
+    return Cache(self_k, self_v, ck, cv, ks, vs, cross_bits=bits, **scales)
 
 
 # ---------------------------------------------------------------------------
 # Cached decoder forward (prefill with T>1, or single-step with T=1)
 # ---------------------------------------------------------------------------
 
-def _cached_attention(q, kh, vh, t_valid=None, min_valid=None):
+def _cached_attention(q, kh, vh, t_valid=None, min_valid=None, k_scale=None, v_scale=None):
     """q (B,T,H,Dh) against head-major keys/values kh, vh (B,H,Tk,Dh).
     t_valid: (T,) how many cache positions each query sees (causality
     inside the prefill window); None = all of them.  min_valid: (B,) first
     visible cache position of each row, which hides the left padding of
-    prompted rows.  Scores are softmaxed in float32."""
+    prompted rows.  Scores are softmaxed in float32.  k_scale/v_scale:
+    (B,H,Tk,1) per-token scales of an int8 cache: K's multiplies the
+    scores after QK^T, V's the probabilities before they round to q's
+    dtype, as in the JAX ``_cached_attention``."""
     dh = q.shape[-1]
     qh = q.transpose(1, 2)  # (B, H, T, Dh)
+    if k_scale is not None:
+        kh, vh = kh.to(q.dtype), vh.to(q.dtype)
     scores = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(dh))
+    if k_scale is not None:
+        scores = scores * k_scale.transpose(-1, -2)  # (B, H, 1, Tk)
     if t_valid is not None:
         pos = torch.arange(kh.shape[2], device=q.device)
         mask = pos[None, :] < t_valid[:, None]  # (T, Tk)
@@ -334,8 +357,18 @@ def _cached_attention(q, kh, vh, t_valid=None, min_valid=None):
             mask = (mask[None] & vis)[:, None]  # (B, 1, T, Tk)
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.transpose(-1, -2)
     out = torch.matmul(probs.to(q.dtype), vh)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _quantize_token(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 over the channel axis: (..., Dh) -> (int8
+    values, (..., 1) float32 scales)."""
+    x = x.float()
+    scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
 
 
 def decoder_forward_cached(
@@ -372,7 +405,15 @@ def decoder_forward_cached(
     """
     p = params["decoder"]
     b, t = tokens.shape
-    dtype = compute_dtype if compute_dtype is not None else cache.self_k.dtype
+    quantized_self = cache.self_k_scale is not None
+    if compute_dtype is not None:
+        dtype = compute_dtype
+    elif quantized_self:
+        # an int8 self cache carries no activation dtype: the float cross
+        # cache's, else float32
+        dtype = cache.cross_k.dtype if cache.cross_k.is_floating_point() else torch.float32
+    else:
+        dtype = cache.self_k.dtype
     if pos_offset is None:
         pe = p["pos_emb"][pos : pos + t]
     else:
@@ -390,12 +431,23 @@ def decoder_forward_cached(
         q = split_heads(linear(bp["attn"]["q"], xn), n_head)
         k_new = split_heads(linear(bp["attn"]["k"], xn), n_head)
         v_new = split_heads(linear(bp["attn"]["v"], xn), n_head)
-        cache.self_k[l, :, :, pos : pos + t] = k_new.transpose(1, 2)
-        cache.self_v[l, :, :, pos : pos + t] = v_new.transpose(1, 2)
+        scales = {}
+        if quantized_self:
+            k8, k_sc = _quantize_token(k_new.transpose(1, 2))
+            v8, v_sc = _quantize_token(v_new.transpose(1, 2))
+            cache.self_k[l, :, :, pos : pos + t] = k8
+            cache.self_v[l, :, :, pos : pos + t] = v8
+            cache.self_k_scale[l, :, :, pos : pos + t] = k_sc
+            cache.self_v_scale[l, :, :, pos : pos + t] = v_sc
+            scales = dict(k_scale=cache.self_k_scale[l, :, :, : pos + t],
+                          v_scale=cache.self_v_scale[l, :, :, : pos + t])
+        else:
+            cache.self_k[l, :, :, pos : pos + t] = k_new.transpose(1, 2)
+            cache.self_v[l, :, :, pos : pos + t] = v_new.transpose(1, 2)
         # positions past pos+t are masked for every query: leave them out
         o = _cached_attention(
             q, cache.self_k[l, :, :, : pos + t], cache.self_v[l, :, :, : pos + t],
-            t_valid, min_valid,
+            t_valid, min_valid, **scales,
         )
         x = x + row_parallel_linear(bp["attn"]["out"], merge_heads(o), mesh)
         # --- cross-attention against the precomputed encoder K/V
@@ -698,6 +750,7 @@ def _decode_rows(
     best_of: int,
     max_initial_ts_index: int | None,
     mesh=None,
+    quantize_self_kv: bool = False,
 ) -> DecodeResult:
     """The greedy/sampling decode of greedy_decode and
     prompted_greedy_decode: best_of expansion, cache, prefill (no-speech
@@ -718,7 +771,7 @@ def _decode_rows(
     cache = init_cache(
         params, cfg, audio_states, p_len + max_new_tokens, dtype=dtype,
         quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-        kv_bits=kv_bits, mesh=mesh,
+        kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
     )
     unembed = params["decoder"]["token_emb"].float()
     row_kw = dict(pos_offset=pad_len, min_valid=pad_len, compute_dtype=dtype,
@@ -767,6 +820,7 @@ def greedy_decode(
     best_of: int = 1,
     max_initial_ts_index: int | None = 50,
     mesh=None,
+    quantize_self_kv: bool = False,
 ) -> DecodeResult:
     """Batched greedy/sampling decode with Whisper's rules.
 
@@ -777,6 +831,8 @@ def greedy_decode(
     read through kernel B on the card; with kv_bits=8 the int8 cache, in
     the kernel layout read through the int8 kernel when use_pallas_kernel
     (the JAX package's name for it), else read through plain attention.
+    quantize_self_kv: the self-attention cache is int8 with per-token
+    scales (the cross cache and its kernels are unchanged).
     mesh: decode this rank's rows on its shard (module docstring).
     """
     b, dev = audio_states.shape[0], audio_states.device
@@ -792,6 +848,7 @@ def greedy_decode(
         use_pallas_kernel=use_pallas_kernel, kv_bits=kv_bits,
         temperature=temperature, rng_seed=rng_seed, best_of=best_of,
         max_initial_ts_index=max_initial_ts_index, mesh=mesh,
+        quantize_self_kv=quantize_self_kv,
     )
 
 
@@ -820,6 +877,7 @@ def prompted_greedy_decode(
     best_of: int = 1,
     max_initial_ts_index: int | None = 50,
     mesh=None,
+    quantize_self_kv: bool = False,
 ) -> DecodeResult:
     """Greedy/sampling decode with PER-ROW prompts: openai-whisper's
     <|startofprev|> + previous text + sot sequence, batched.  Rows are
@@ -842,6 +900,7 @@ def prompted_greedy_decode(
         use_pallas_kernel=use_pallas_kernel, kv_bits=kv_bits,
         temperature=temperature, rng_seed=rng_seed, best_of=best_of,
         max_initial_ts_index=max_initial_ts_index, mesh=mesh,
+        quantize_self_kv=quantize_self_kv,
     )
 
 
@@ -908,6 +967,7 @@ def beam_decode(
     max_initial_ts_index: int | None = 50,
     space_blank_id: int | None = None,
     mesh=None,
+    quantize_self_kv: bool = False,
 ) -> DecodeResult:
     """Batched beam search with openai-whisper's BeamSearchDecoder
     semantics.
@@ -949,7 +1009,7 @@ def beam_decode(
     cache = init_cache(
         params, cfg, audio_states.repeat_interleave(k, dim=0), prompt_len + max_new_tokens,
         dtype=dtype, quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-        kv_bits=kv_bits, mesh=mesh,
+        kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
     )
     unembed = params["decoder"]["token_emb"].float()
     row_kw = dict(compute_dtype=dtype, kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)
@@ -1043,8 +1103,9 @@ def beam_decode(
         # written so far, in place (flat row = element * K + source beam)
         row_idx = (rows_b[:, None] * k + src_beam).reshape(-1)
         written = prompt_len + step
-        for c in (cache.self_k, cache.self_v):
-            c[:, :, :, :written] = c[:, row_idx, :, :written]
+        for c in (cache.self_k, cache.self_v, cache.self_k_scale, cache.self_v_scale):
+            if c is not None:
+                c[:, :, :, :written] = c[:, row_idx, :, :written]
         logits, cache = decoder_forward_cached(
             params, cfg, next_tok.reshape(b * k, 1), cache, prompt_len + step, **row_kw,
         )

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.kernels.encoder_attention import _scores_f32
 from ...ops.kernels.encoder_attention import attention_reference as attention
 from ...ops.kernels.encoder_attention import fused_self_attention
 from ...parallel import mesh as mesh_lib
@@ -145,7 +146,23 @@ def linear(p, x):
     """``x @ W + b`` in x's dtype, W stored (d_in, d_out).  The product
     accumulates in float32 inside the GEMM and the bias joins in its
     epilogue before the one rounding to x's dtype (addmm), as the JAX
-    ``linear`` does with preferred_element_type=float32."""
+    ``linear`` does with preferred_element_type=float32.
+
+    int8 weights (``quantize.quantize_linear``: {"w8", "scale"[, "b"]}):
+    w8 is cast to x's dtype before the product, which stays float32; the
+    per-output-channel scale and then the bias fold into it before the one
+    rounding, as in the JAX ``linear``."""
+    if "w8" in p:
+        x2 = x.reshape(-1, x.shape[-1])
+        w = p["w8"].to(x.dtype)
+        if x.is_cuda and x.dtype != torch.float32:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:  # the exactly upcast operands
+            y = torch.mm(x2.float(), w.float())
+        y = y * p["scale"].float()
+        if "b" in p:
+            y = y + p["b"].float()
+        return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
     w = p["w"].to(x.dtype)
     if "b" not in p:
         return torch.matmul(x, w)
@@ -201,14 +218,34 @@ def merge_heads(x):
     return x.reshape(b, t, h * dh)
 
 
-def self_attention(p, x, n_head, fused=False, mesh=None):
-    """n_head: the heads held here (the rank's under a mesh).  fused=True
-    runs the encoder-attention kernel (the plain version on CPU tensors);
-    the default is the plain matmuls, as in JAX."""
+def masked_attention(q, k, v, mask):
+    """``attention`` with an additive float32 mask (T, Tk) on the scores
+    before the softmax (the JAX ``model.attention`` with ``mask``)."""
+    dh = q.shape[-1]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, T, Dh)
+    scores = _scores_f32(qh, kh) * (1.0 / math.sqrt(dh))
+    probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2).to(q.dtype)
+
+
+def causal_mask(t: int, device=None) -> torch.Tensor:
+    """(t, t) float32: -inf above the diagonal, 0 elsewhere."""
+    return torch.triu(torch.full((t, t), float("-inf"), device=device), diagonal=1)
+
+
+def self_attention(p, x, n_head, mask=None, fused=False, mesh=None):
+    """n_head: the heads held here (the rank's under a mesh).  mask: an
+    additive (T, T) mask (the teacher-forced decoder's causal one).
+    fused=True runs the encoder-attention kernel (the plain version on CPU
+    tensors) when there is no mask; the default is the plain matmuls, as
+    in JAX."""
     q = split_heads(linear(p["q"], x), n_head)
     k = split_heads(linear(p["k"], x), n_head)
     v = split_heads(linear(p["v"], x), n_head)
-    o = fused_self_attention(q, k, v) if fused else attention(q, k, v)
+    if mask is not None:
+        o = masked_attention(q, k, v, mask)
+    else:
+        o = fused_self_attention(q, k, v) if fused else attention(q, k, v)
     return row_parallel_linear(p["out"], merge_heads(o), mesh)
 
 
@@ -253,3 +290,50 @@ def encode(
         )
         x = x + mlp(bp, layer_norm(bp["mlp_ln"], x), mesh)
     return layer_norm(p["ln_post"], x)
+
+
+# ---------------------------------------------------------------------------
+# Decoder (teacher-forced full sequence; the cached step is in decode.py)
+# ---------------------------------------------------------------------------
+
+def decode_logits(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    audio_states: torch.Tensor,
+    *,
+    pos_offset: int = 0,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Teacher-forced decoder: tokens (B, T), audio (B, 1500, d) -> logits
+    (B, T, V) float32, under the causal mask."""
+    p = params["decoder"]
+    t = tokens.shape[1]
+    x = p["token_emb"][tokens].to(compute_dtype)
+    x = x + p["pos_emb"][pos_offset : pos_offset + t].to(compute_dtype)
+    causal = causal_mask(t, tokens.device)
+    audio_states = audio_states.to(compute_dtype)
+    for l in range(cfg.n_text_layer):
+        bp = layer(p["blocks"], l)
+        x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_text_head, causal)
+        xa = layer_norm(bp["cross_attn_ln"], x)
+        q = split_heads(linear(bp["cross_attn"]["q"], xa), cfg.n_text_head)
+        k = split_heads(linear(bp["cross_attn"]["k"], audio_states), cfg.n_text_head)
+        v = split_heads(linear(bp["cross_attn"]["v"], audio_states), cfg.n_text_head)
+        x = x + linear(bp["cross_attn"]["out"], merge_heads(attention(q, k, v)))
+        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+    x = layer_norm(p["ln"], x)
+    # the products of x's dtype are exact in float32 (preferred_element_type)
+    return torch.matmul(x.float(), p["token_emb"].to(x.dtype).float().T)
+
+
+def forward(
+    params: Params,
+    cfg: WhisperConfig,
+    mel: torch.Tensor,
+    tokens: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Full forward pass: mel + teacher-forced tokens -> logits."""
+    audio = encode(params, cfg, mel, compute_dtype=compute_dtype)
+    return decode_logits(params, cfg, tokens, audio, compute_dtype=compute_dtype)

@@ -7,11 +7,15 @@ in slabs of windows, followed by openai-whisper's quality-retry ladder,
 no-speech gate, seek repair and segment assembly.  The decode is greedy
 over the int4 cross-KV cache by default, or beam search, prompted by
 ``initial_prompt``, continued from a ``prefix``, or conditioned on the
-previous windows' text in window groups.  Option defaults are the JAX
-package's.  Options that belong to later slices of the port raise
-NotImplementedError at construction.  ``transcribe_batch`` packs the
-windows of several recordings into shared slabs.  Audio at another rate
-than 16 kHz is resampled on the device (``ops/frontend.resample``).
+previous windows' text in window groups, over an int8 self-attention
+cache with ``quantize_self_kv``.  Option defaults are the JAX package's.
+With ``word_timestamps`` each slab's encoder states are kept for a
+teacher-forced alignment pass and a DTW on the host
+(``models/whisper/align.py``), which give every segment its words;
+``hallucination_silence_threshold`` then drops anomalous segments next to
+silence.  ``transcribe_batch`` packs the windows of several recordings
+into shared slabs.  Audio at another rate than 16 kHz is resampled on the
+device (``ops/frontend.resample``).
 
 Slabs run one after another: PyTorch queues the card's work
 asynchronously, and the decode loop reads back one flag per token.
@@ -22,7 +26,8 @@ and cuts the same slabs, each rounded to a multiple of the data axis.  A
 data rank frontends, encodes and decodes its rows of a slab; the decode
 results are all-gathered over the data axis, and every rank then runs the
 same host logic (retry ladder, no-speech gate, seek repair, segments) and
-returns the same result.
+returns the same result.  Word timestamps and int8 decoder weights are
+not served on a mesh yet: the Transcriber refuses both there.
 """
 from __future__ import annotations
 
@@ -62,13 +67,85 @@ CHUNK_SAMPLES = frontend.N_SAMPLES  # 480_000 = 30 s @ 16 kHz
 # openai's default retry rungs ((0, .2, .4, .6, .8, 1) minus the 0 base)
 DEFAULT_TEMPERATURE_LADDER = (0.2, 0.4, 0.6, 0.8, 1.0)
 
-# options of the JAX Transcriber that later slices of the port bring:
-# name -> the value that means "off"
-_LATER_SLICE_OPTIONS = {
-    "word_timestamps": False,
-    "hallucination_silence_threshold": None,
-    "quantize_self_kv": False,
-}
+# openai-whisper's punctuation set for the hallucination anomaly score
+# (whisper/transcribe.py `punctuation`): pure-punctuation "words" carry no
+# evidence either way and are left out of the score
+_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
+
+
+def _word_anomaly_score(word: dict) -> float:
+    """openai-whisper's word_anomaly_score: improbable or implausibly
+    short or long words score high."""
+    probability = word.get("probability", 0.0)
+    duration = word["end"] - word["start"]
+    score = 0.0
+    if probability < 0.15:
+        score += 1.0
+    if duration < 0.133:
+        score += (0.133 - duration) * 15
+    if duration > 2.0:
+        score += duration - 2.0
+    return score
+
+
+def _is_segment_anomaly(seg_words: list[dict]) -> bool:
+    """openai-whisper's is_segment_anomaly over a segment's words."""
+    words = [w for w in seg_words if w["word"] not in _PUNCTUATION][:8]
+    if not words:
+        return False
+    score = sum(_word_anomaly_score(w) for w in words)
+    return score >= 3 or score + 0.01 >= len(words)
+
+
+def filter_hallucinations(
+    segments: list[dict], words: list[dict], threshold: float, total_duration: float,
+) -> tuple[list[dict], list[dict]]:
+    """openai's hallucination_silence_threshold as a pass over the final
+    timeline (the JAX package's ``filter_hallucinations``): an anomalous
+    segment with silence longer than ``threshold`` (or another anomaly) on
+    both sides is dropped, with its words.  openai grants the end of the
+    recording a fixed 2.0 s window.  Returns (segments, words)."""
+    if not segments:
+        return segments, words
+
+    def words_in(seg: dict) -> list[dict]:
+        return [w for w in words
+                if seg["start"] - 0.05 <= (w["start"] + w["end"]) / 2 <= seg["end"] + 0.05]
+
+    anomalous = [_is_segment_anomaly(words_in(s)) for s in segments]
+    kept: list[dict] = []
+    dropped_spans: list[tuple[float, float]] = []
+    for si, seg in enumerate(segments):
+        if not anomalous[si]:
+            kept.append(seg)
+            continue
+        prev_end = kept[-1]["end"] if kept else 0.0
+        nxt = segments[si + 1] if si + 1 < len(segments) else None
+        next_start = nxt["start"] if nxt is not None else total_duration
+        silence_before = seg["start"] - prev_end > threshold or seg["start"] < threshold
+        silence_after = (
+            next_start - seg["end"] > threshold
+            or total_duration - seg["end"] < 2.0
+            or (nxt is not None and anomalous[si + 1])
+        )
+        if silence_before and silence_after:
+            dropped_spans.append((seg["start"], seg["end"]))
+        else:
+            kept.append(seg)
+    if not dropped_spans:
+        return segments, words
+    kept_words = [
+        w for w in words
+        if not any(s - 0.05 <= (w["start"] + w["end"]) / 2 <= e + 0.05 for s, e in dropped_spans)
+    ]
+    return kept, kept_words
+
+
+def _has_int8_weights(params) -> bool:
+    """True when a decoder linear holds int8 weights (quantize_decoder)."""
+    found = []
+    model_lib.map_params(lambda t: found.append(t.dtype == torch.int8), params["decoder"])
+    return any(found)
 
 
 def _f32_to_i16(x: np.ndarray) -> np.ndarray:
@@ -155,20 +232,44 @@ class Transcriber:
     condition_ctx_tokens: int = 48
     # parallel.mesh.Mesh: serve on a (data, model) mesh, one process a rank
     mesh: Any = None
-    # later-slice options (must stay at their "off" value here)
+    # openai's word_timestamps: a teacher-forced alignment pass over each
+    # window's tokens and a DTW give every segment its "words"; spaceless
+    # languages (zh/ja/th/lo/my/yue) split per codepoint, others at
+    # spaces, punctuation merged into its neighbour by the two strings
     word_timestamps: bool = False
+    prepend_punctuations: str = "\"'“¿([{-"
+    append_punctuations: str = "\"'.。,，!！?？:：”)]}、"
+    # openai's hallucination_silence_threshold (seconds): drop anomalous
+    # segments next to silence longer than this; needs word_timestamps
     hallucination_silence_threshold: float | None = None
+    # int8 self-attention cache with per-token scales (the JAX package's
+    # memory option; the cross cache and its kernels are unchanged)
     quantize_self_kv: bool = False
+    # accepted for configs written for the JAX package, where it picks the
+    # Pallas log-mel kernel on a TPU backend; the port's card path runs
+    # kernel A (csrc/log_mel.cu) whatever its value, and the CPU path its
+    # plain version
+    use_pallas_frontend: bool = False
 
     def __post_init__(self):
-        for name, off in _LATER_SLICE_OPTIONS.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"Transcriber option {name}={getattr(self, name)!r} is not "
-                    "ported to the PyTorch package yet"
-                )
         if self.task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe|translate, got {self.task!r}")
+        if self.hallucination_silence_threshold is not None and not self.word_timestamps:
+            raise ValueError(
+                "hallucination_silence_threshold requires word_timestamps=True "
+                "(the anomaly score reads word probabilities and durations, as "
+                "in openai-whisper)"
+            )
+        if self.mesh is not None and self.word_timestamps:
+            raise NotImplementedError(
+                "word_timestamps on a mesh is a later slice of the port: the "
+                "alignment pass runs on one device"
+            )
+        if self.mesh is not None and _has_int8_weights(self.params):
+            raise NotImplementedError(
+                "int8 decoder weights on a mesh are a later slice of the port: "
+                "the model-parallel split reads float linears"
+            )
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {self.temperature}")
         if self.mesh is None:
@@ -467,6 +568,7 @@ class Transcriber:
             dtype_name=self.compute_dtype,
             quantize_cross_kv=self.quantize_cross_kv,
             kv_bits=self.cross_kv_bits,
+            quantize_self_kv=self.quantize_self_kv,
             mesh=self.mesh,
         )
 
@@ -650,7 +752,10 @@ class Transcriber:
         slab: each window whose decode trails unclosed text after its last
         closed timestamp pair gets a patch window starting there, whose
         segments replace window i's discarded tail and window i+1's
-        overlapped head.  Mutates ``tokens``; returns (tokens, patches)."""
+        overlapped head.  Mutates ``tokens``; returns (tokens, patches),
+        patches None or {"tokens", "offsets", "durations", "meta"[,
+        "states"]}: with word_timestamps the kept patches' encoder states
+        ride along for the alignment pass."""
         if not self.seek_repair or self.without_timestamps or n_chunks < 1:
             return tokens, None
         content_s = len(audio) / 16_000.0
@@ -669,6 +774,7 @@ class Transcriber:
         )
         patch_rows: list[np.ndarray] = []
         patch_metas: list[dict] = []
+        patch_states: list[torch.Tensor] = []
         cap = self._slab_cap
         for lo in range(0, len(bounds), cap):
             batch = bounds[lo : lo + cap]
@@ -684,6 +790,8 @@ class Transcriber:
             ptoks, pmeta = self._collect_slab(self._run_decode(states), states, len(batch))
             patch_rows.append(ptoks)
             patch_metas.append(pmeta)
+            if self.word_timestamps:
+                patch_states.append(states[: len(batch)])
         patch_tokens = np.concatenate(patch_rows, axis=0)
         patch_meta = {k: np.concatenate([m[k] for m in patch_metas]) for k in patch_metas[0]}
 
@@ -719,12 +827,16 @@ class Transcriber:
         if not kept_rows:
             return tokens, None
         kept = np.asarray(kept_idx)
-        return tokens, {
+        patches = {
             "tokens": np.stack(kept_rows),
             "offsets": np.asarray(kept_offsets, np.float64),
             "durations": np.asarray(kept_durations, np.float64),
             "meta": {k: v[kept] for k, v in patch_meta.items()},
         }
+        if self.word_timestamps:
+            all_states = torch.cat(patch_states)
+            patches["states"] = all_states[torch.from_numpy(kept).to(all_states.device)]
+        return tokens, patches
 
     # -- language detection ------------------------------------------------------
 
@@ -774,6 +886,29 @@ class Transcriber:
         langs = WHISPER_LANGUAGES_V3 if self.special.num_languages >= 100 else WHISPER_LANGUAGES
         return langs[lang] if 0 <= lang < len(langs) else None
 
+    def detect_language(
+        self, audio: "np.ndarray | str | os.PathLike", sample_rate: int = 16_000,
+    ) -> dict:
+        """openai's ``model.detect_language`` on the first 30 s: returns
+        {"language": iso_code, "probabilities": {code: p, ...}} sorted by
+        probability."""
+        if not self.cfg.is_multilingual:
+            raise ValueError(
+                "detect_language requires a multilingual model "
+                "(this config has no language tokens)"
+            )
+        # a path decodes only its first window
+        audio, sample_rate = ingest.load_if_path(audio, sample_rate, max_s=30.0)
+        audio = np.asarray(audio, np.float32)
+        if sample_rate != 16_000:
+            audio = frontend.resample_host(audio, sample_rate, device=self.device)
+        states = self._frontend_encode(self._chunk_slab(audio, [0], self._round(1)))
+        _, probs = decode_lib.detect_language(self.params, self.cfg, states, mesh=self.mesh)
+        probs = self._all_rows(probs).cpu().numpy()[0]
+        langs = WHISPER_LANGUAGES_V3 if self.special.num_languages >= 100 else WHISPER_LANGUAGES
+        pairs = sorted(zip(langs[: len(probs)], probs.tolist()), key=lambda kv: -kv[1])
+        return {"language": pairs[0][0], "probabilities": dict(pairs)}
+
     # -- conditioned (window-group) decoding --------------------------------------
 
     def _transcribe_conditioned(
@@ -787,7 +922,9 @@ class Transcriber:
         + its group's text so far (openai's prompt).  It composes with beam
         search and with the retry ladder, whose rungs keep the prompt up to
         T=0.5 and drop it above (openai's prompt_reset_on_temperature).
-        Returns (tokens (n_chunks, max_new_tokens), per-window meta)."""
+        Returns (tokens (n_chunks, max_new_tokens), the encoder states in
+        slabs of chunk order when word_timestamps needs them, per-window
+        meta)."""
         g_size = max(1, self.condition_group_size)
         n_groups = math.ceil(n_chunks / g_size)
         token_rows = np.full((n_chunks, self.max_new_tokens), self.special.eot, np.int32)
@@ -806,6 +943,9 @@ class Transcriber:
         max_ctx = self.condition_ctx_tokens
         if self.carry_initial_prompt:
             max_ctx = max(max_ctx, len(self._initial_prompt_tokens))
+        # word_timestamps: rounds visit windows out of order, so each round's
+        # states are kept and put back into window order at the end
+        kept_states: list[tuple[list[int], torch.Tensor]] = []
 
         for r in range(g_size):
             chunk_ids = [g * g_size + r for g in range(n_groups) if g * g_size + r < n_chunks]
@@ -868,9 +1008,18 @@ class Transcriber:
                         on_segment, tokens, np.asarray(ids, np.float64),
                         len(audio) / 16_000.0, time_map,
                     )
+                if self.word_timestamps:
+                    kept_states.append((ids, states[: len(ids)]))
             if progress:
                 progress(0.1 + 0.8 * (r + 1) / g_size)
-        return token_rows, chunk_meta
+        states_per_slab: list[torch.Tensor] = []
+        if kept_states:
+            order = np.argsort(np.concatenate([np.asarray(ids) for ids, _ in kept_states]))
+            all_states = torch.cat([st for _, st in kept_states])
+            all_states = all_states[torch.from_numpy(order).to(all_states.device)]
+            slab = self._round(min(_bucket(n_chunks), self._slab_cap))
+            states_per_slab = [all_states[lo : lo + slab] for lo in range(0, n_chunks, slab)]
+        return token_rows, states_per_slab, chunk_meta
 
     # -- main entry --------------------------------------------------------------
 
@@ -945,20 +1094,22 @@ class Transcriber:
                 time_map = TimeMap.identity(duration_s)
 
         n_chunks = max(1, math.ceil(len(audio) / CHUNK_SAMPLES))
+        slab = self._round(min(_bucket(n_chunks), self._slab_cap))
         if self.condition_on_previous_text:
-            tokens, chunk_meta = self._transcribe_conditioned(
+            tokens, cond_states, chunk_meta = self._transcribe_conditioned(
                 audio, n_chunks, progress, on_segment=on_segment, time_map=time_map,
             )
             tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
             return self._finalize(
                 tokens, n_chunks, duration_s, time_map, t0, progress,
-                audio=audio, patches=patches, chunk_meta=chunk_meta,
+                states_per_slab=cond_states, slab=slab, audio=audio, patches=patches,
+                chunk_meta=chunk_meta,
             )
-        slab = self._round(min(_bucket(n_chunks), self._slab_cap))
         n_slabs = math.ceil(n_chunks / slab)
         content_s = len(audio) / 16_000.0
         token_rows: list[np.ndarray] = []
         meta_rows: list[dict] = []
+        states_per_slab: list[torch.Tensor] = []  # kept only for word alignment
         for si in range(n_slabs):
             lo = si * slab
             real = min(slab, n_chunks - lo)
@@ -978,6 +1129,8 @@ class Transcriber:
                 self._run_decode(audio_states, first_row_prompt=si == 0), audio_states, real,
                 first_slab=si == 0,
             )
+            if self.word_timestamps:
+                states_per_slab.append(audio_states)
             del audio_states
             token_rows.append(toks)
             meta_rows.append(meta)
@@ -994,14 +1147,51 @@ class Transcriber:
         tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
         return self._finalize(
             tokens, n_chunks, duration_s, time_map, t0, progress,
-            audio=audio, patches=patches, chunk_meta=chunk_meta,
+            states_per_slab=states_per_slab, slab=slab, audio=audio, patches=patches,
+            chunk_meta=chunk_meta,
         )
+
+    def _word_pass(self, states_per_slab, slab, tokens, n_chunks, offsets, durations,
+                   patches, time_map) -> list[dict]:
+        """Words of every grid window (its slab's states) and seek-repair
+        patch, on the original timeline, sorted by time.  The teacher-forced
+        rows carry the decode's sot sequence, and each window's map is
+        cropped to its content frames (openai's find_alignment)."""
+        from ..models.whisper import align
+
+        lang = self._active_language if self._active_language is not None else self.language
+        word_kw = dict(
+            with_probabilities=True, language=self._language_code(),
+            prepend_punctuations=self.prepend_punctuations,
+            append_punctuations=self.append_punctuations, sot_sequence=self._sot_seq(lang),
+        )
+        # (states, token rows, offsets, durations) of each slab, then the patches
+        jobs = []
+        for si, states in enumerate(states_per_slab):
+            rows = slice(si * slab, min((si + 1) * slab, n_chunks))
+            jobs.append((states[: rows.stop - rows.start], tokens[rows], offsets[rows],
+                         durations[rows]))
+        if patches is not None and "states" in patches:
+            jobs.append(tuple(patches[k] for k in ("states", "tokens", "offsets", "durations")))
+        per_chunk = []
+        for states, rows, offs, durs in jobs:
+            per_chunk.extend(align.word_timestamps(
+                self.params, self.cfg, states, rows, self.special, self.tokenizer.decode, offs,
+                content_frames=np.ceil(durs / align.AUDIO_FRAME_S), **word_kw,
+            ))
+        words = [
+            {**w, "start": round(time_map.to_original(w["start"]), 3),
+             "end": round(time_map.to_original(w["end"]), 3)}
+            for chunk_words in per_chunk for w in chunk_words
+        ]
+        words.sort(key=lambda w: (w["start"], w["end"]))
+        return words
 
     def _finalize(
         self, tokens, n_chunks, duration_s, time_map, t0, progress,
-        *, audio, patches=None, chunk_meta=None,
+        *, audio, states_per_slab=(), slab=1, patches=None, chunk_meta=None,
     ) -> dict:
-        """Shared tail: tokens -> segments -> result dict."""
+        """Shared tail: tokens -> segments -> (words) -> result dict."""
         offsets = np.arange(n_chunks, dtype=np.float64) * 30.0
         # actual audio seconds per chunk bound unclosed trailing segments
         content_s = len(audio) / 16_000.0
@@ -1036,6 +1226,30 @@ class Transcriber:
         for seg in segments:
             seg["start"] = round(time_map.to_original(seg["start"]), 3)
             seg["end"] = round(time_map.to_original(seg["end"]), 3)
+        words = None
+        if self.word_timestamps:
+            words = self._word_pass(states_per_slab, slab, tokens, n_chunks, offsets,
+                                    durations, patches, time_map)
+            if self.hallucination_silence_threshold is not None:
+                segments, words = filter_hallucinations(
+                    segments, words, self.hallucination_silence_threshold, duration_s,
+                )
+            # openai's segment["words"] (the subtitle writers' word modes read
+            # it): each word joins the first segment holding its midpoint
+            wi = 0
+            for seg in segments:
+                seg_words: list[dict] = []
+                while wi < len(words):
+                    mid = (words[wi]["start"] + words[wi]["end"]) / 2
+                    if mid < seg["start"] - 0.05:
+                        wi += 1  # before this segment: in the flat list only
+                    elif mid <= seg["end"] + 0.05:
+                        seg_words.append(words[wi])
+                        wi += 1
+                    else:
+                        break
+                seg["words"] = seg_words
+        # openai's running segment id, on the final list
         for i, seg in enumerate(segments):
             seg["id"] = i
         elapsed = time.perf_counter() - t0
@@ -1050,6 +1264,8 @@ class Transcriber:
         lang_code = self._language_code()
         if lang_code is not None:
             out["language"] = lang_code
+        if words is not None:
+            out["words"] = words
         return out
 
     # -- cross-request batched transcription ------------------------------------
@@ -1197,6 +1413,9 @@ class Transcriber:
         rows_by_file: list[list[np.ndarray | None]] = [[None] * n for n in n_chunks_per]
         meta_keys = ("avg_logprob", "no_speech_prob", "temperature", "compression_ratio")
         meta_by_file = [{k: np.zeros(n, np.float64) for k in meta_keys} for n in n_chunks_per]
+        # word alignment needs each file's states in window order: the shared
+        # slabs are kept with their pairs and gathered per file at the end
+        kept_slab_states: list[tuple[torch.Tensor, list[tuple[int, int]]]] = []
         for lang, pairs in pairs_by_lang.items():
             self._active_language = lang
             slab = self._round(min(_bucket(len(pairs)), self._slab_cap))
@@ -1212,6 +1431,8 @@ class Transcriber:
                 toks, meta = self._collect_slab(
                     self._run_decode(audio_states), audio_states, len(batch_pairs),
                 )
+                if self.word_timestamps:
+                    kept_slab_states.append((audio_states, batch_pairs))
                 del audio_states
                 for j, (fi, ci) in enumerate(batch_pairs):
                     rows_by_file[fi][ci] = toks[j]
@@ -1237,9 +1458,23 @@ class Transcriber:
             )
             for ci, r in enumerate(rows):
                 tokens[ci, : len(r)] = r
+            states_per_slab: list[torch.Tensor] = []
+            if self.word_timestamps:
+                # this file's rows of the kept slabs; its windows are in
+                # order within a language group, so the parts sort by their
+                # first window
+                parts = []
+                for states, batch_pairs in kept_slab_states:
+                    idx = [j for j, (f, _) in enumerate(batch_pairs) if f == fi]
+                    if idx:
+                        sel = torch.tensor(idx, device=states.device)
+                        parts.append((batch_pairs[idx[0]][1], states[sel]))
+                parts.sort(key=lambda p: p[0])
+                states_per_slab = [torch.cat([st for _, st in parts])]
             tokens, patches = self._apply_seek_repair(tokens, n_chunks_per[fi], trimmed[fi])
             results.append(self._finalize(
                 tokens, n_chunks_per[fi], durations_s[fi], time_maps[fi], t0, None,
+                states_per_slab=states_per_slab, slab=max(1, n_chunks_per[fi]),
                 audio=trimmed[fi], patches=patches, chunk_meta=meta_by_file[fi],
             ))
         return results

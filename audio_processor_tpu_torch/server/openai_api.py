@@ -15,9 +15,8 @@ formats, error envelopes, slots and dynamic batcher, on the port's
 dataclasses.replace on the shared Transcriber; its ``__post_init__`` casts
 and moves nothing that is already cast and on its device, and keeps
 sharded parameters as they are, so a replaced copy shares the weights.
-An option the port's Transcriber does not have yet
-(``timestamp_granularities[]=word`` needs ``word_timestamps``) answers 400
-with a message naming it.
+``timestamp_granularities[]=word`` turns on ``word_timestamps`` for the
+request.
 """
 from __future__ import annotations
 
@@ -476,11 +475,6 @@ def _handle(request: Request, services: Any, task: str):
             t = dataclasses.replace(t, **changes)
         except ValueError as e:
             return _error(str(e))
-        except NotImplementedError as e:  # an option not ported yet
-            return _error(
-                str(e),
-                param="timestamp_granularities" if "word_timestamps" in changes else None,
-            )
 
     stream = (field("stream") or "").lower() in ("true", "1")
     if stream and fmt not in ("json", "text"):

@@ -1,8 +1,8 @@
 """Timestamp utilities: HH:MM:SS, filename dates, trim-time mapping.
 
 A copy of the JAX package's ``utils/timestamps.py`` (TimeMap,
-compose_intervals, format_timestamp and extract_date_from_filename): the
-port imports nothing from that package.
+compose_intervals, format_timestamp, extract_date_from_filename and
+parse_clip_timestamps): the port imports nothing from that package.
 """
 from __future__ import annotations
 
@@ -90,3 +90,26 @@ def compose_intervals(
             if b > a:
                 out.append((os_ + (a - ts), os_ + (b - ts)))
     return out
+
+
+def parse_clip_timestamps(spec: str, duration: float) -> list[tuple[float, float]]:
+    """openai-whisper's --clip_timestamps string: comma-separated start,end
+    pairs in seconds; a trailing lone start runs to the end.  Pairs pass
+    through unclamped (``Transcriber.transcribe`` clamps them and raises
+    when none selects audio); only pairs the user typed must not end
+    before they start."""
+    vals = [float(v) for v in spec.split(",") if v.strip() != ""]
+    if not vals:
+        return []
+    lone_start = len(vals) % 2 == 1
+    if lone_start:
+        vals.append(max(duration, vals[-1]))
+    clips = []
+    for i, (s, e) in enumerate(zip(vals[0::2], vals[1::2])):
+        user_pair = not (lone_start and i == len(vals) // 2 - 1)
+        if user_pair and e < s:
+            raise ValueError(f"clip end before start in {spec!r}: {s},{e}")
+        clips.append((s, e))
+    if clips != sorted(clips):
+        raise ValueError(f"clip_timestamps must be sorted: {spec!r}")
+    return clips

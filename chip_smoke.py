@@ -26,7 +26,12 @@ floor and SDPA.  The service (``serve``): ``build_services`` at whisper-small
 width with the bundled diarizer, ``create_app`` on a local port, three
 2 min meetings through the job API at once (all 9 stages, one job held to
 direct calls, kernels A and B counted), four concurrent ``/v1`` uploads
-through the dynamic batcher.  Diarization, last: kernel A on the segmentation net's
+through the dynamic batcher.  Word timestamps (``transcribe_words``): the
+``transcribe`` workload with word_timestamps, the hallucination filter and
+the int8 self cache, its teacher-forced pass, host chain and DTW (the C++
+function against its numpy twin on the phase's own costs) timed apart,
+and a bench line on int8 decoder weights with the int8 self cache.
+Diarization, last: kernel A on the segmentation net's
 10 s and 6 s windows at a slab of 128, the bundled Diarizer on the card
 against the CPU in float32 and against the JAX suite's quality gates at
 its bf16 default, fusion of the card's and the CPU's turns, then a 30 min
@@ -536,8 +541,12 @@ def phase_check(dev) -> dict:
     kernel A -> encoder (plain, and through the encoder-attention kernel)
     -> int4 greedy (kernel B), int8-kernel greedy, beam search and prompted
     greedy with rows of mixed prompt lengths, one of them empty.  The
-    tokens must be equal in every case."""
-    from audio_processor_tpu_torch.models.whisper import decode, model
+    tokens must be equal in every case, with the int8 self cache and on
+    int8 decoder weights too.  Then word timestamps on the CPU's states and
+    greedy tokens: the teacher-forced maps (pooled, and on hand-set
+    alignment heads) within 1e-4 of the CPU's, and the words (C++ DTW on
+    the card, the numpy twin on the CPU) equal."""
+    from audio_processor_tpu_torch.models.whisper import align, decode, model, quantize
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 
     cfg = check_config()
@@ -558,6 +567,12 @@ def phase_check(dev) -> dict:
         "prompted_int4": lambda p, x: decode.prompted_greedy_decode(
             p, cfg, x, rows, lens, sot_len=len(sot), max_new_tokens=24,
             quantize_cross_kv=True, kv_bits=4),
+        "greedy_int4_self_int8": lambda p, x: decode.greedy_decode(
+            p, cfg, x, sot_sequence=sot, max_new_tokens=24, quantize_cross_kv=True, kv_bits=4,
+            quantize_self_kv=True),
+        "greedy_int4_int8_weights": lambda p, x: decode.greedy_decode(
+            quantize.quantize_decoder(p), cfg, x, sot_sequence=sot, max_new_tokens=24,
+            quantize_cross_kv=True, kv_bits=4),
     }
     res = {}
     for where in ("cpu", "cuda"):
@@ -575,9 +590,47 @@ def phase_check(dev) -> dict:
             and all(same.values())):
         fail(f"check: encoder max abs err {enc_err}, fused encoder {fused_err}, "
              f"tokens equal: {same}")
+    # word timestamps: the CPU's states and tokens through both devices
+    tokens = res["cpu"]["greedy_int4"].numpy()
+    _, _, forced = align._teacher_forced_rows(tokens, st, sot)
+    words = {}
+    for key, heads in (("pooled", None), ("alignment_heads", ((0, 1), (1, 0)))):
+        hcfg = dataclasses.replace(cfg, alignment_heads=heads)
+        out = {}
+        for where in ("cpu", "cuda"):
+            p = model.map_params(lambda t: t.to(where), params)
+            x = res["cpu"]["states"].to(where)
+            maps, _ = align.alignment_maps(p, hcfg, x, forced, st.eot, False)
+            ws = align.word_timestamps(p, hcfg, x, tokens, st, letters, np.zeros(len(tokens)),
+                                       with_probabilities=True, sot_sequence=sot)
+            out[where] = (maps, [[(w["word"], w["start"], w["end"]) for w in row] for row in ws])
+        words[key] = {"maps_max_abs_err_vs_cpu": float(np.abs(out["cpu"][0] - out["cuda"][0]).max()),
+                      "words_equal_cpu": out["cpu"][1] == out["cuda"][1],
+                      "words": sum(len(row) for row in out["cpu"][1])}
+        if not (words[key]["maps_max_abs_err_vs_cpu"] <= 1e-4 and words[key]["words_equal_cpu"]
+                and words[key]["words"]):
+            fail(f"check: word timestamps ({key}) {words[key]}")
     return {"phase": "check", "encoder_max_abs_err_vs_cpu": enc_err,
             "fused_encoder_max_abs_err_vs_cpu": fused_err,
-            "tokens_equal_cpu": same, "greedy_tokens_equal_cpu": same["greedy_int4"]}
+            "tokens_equal_cpu": same, "greedy_tokens_equal_cpu": same["greedy_int4"],
+            "word_timestamps": words}
+
+
+def letters(ids) -> str:
+    """Random-weight token ids as text a word path can split: every fifth
+    id a space, the others letters."""
+    return "".join(" " if int(i) % 5 == 0 else chr(97 + int(i) % 26) for i in ids)
+
+
+class LetterTokenizer:
+    """encode: UTF-8 bytes; decode: ``letters``, so that random-weight
+    decodes have words."""
+
+    def encode(self, text: str) -> list[int]:
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids) -> str:
+        return letters(ids)
 
 
 def phase_cross_attn_tp(dev, kernels) -> dict:
@@ -1030,17 +1083,116 @@ def phase_transcribe_openai(dev, counters, off_path=()) -> dict:
     }
 
 
+WORDS_MODEL = "small"
+WORDS_AUDIO_S = 240.0
+
+
+def phase_transcribe_words(dev, counters, card: str) -> dict:
+    """The ``transcribe`` cell with word_timestamps=True,
+    hallucination_silence_threshold=2.0 and quantize_self_kv=True
+    (whisper-small, random weights from seed 0, 4 min: one slab of 8
+    windows; ids rendered as letters, so that random decodes have words),
+    cold then warm, and warm once more without words on the same
+    weights.  The word pass's parts are timed in the warm run by wrapping
+    ``align``'s stages: the teacher-forced pass (device, read back), the
+    host chain (crop, z-score, median filter) and the DTW; the C++ DTW and
+    its numpy twin are then timed on the run's own costs and must give
+    equal starts.  Kernels A and B must launch in the warm run."""
+    from audio_processor_tpu_torch.models.whisper import align
+    from audio_processor_tpu_torch.ops.kernels import dtw
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    t_phase = time.perf_counter()
+    tr = Transcriber.random_init(WORDS_MODEL, device=dev, word_timestamps=True,
+                                 hallucination_silence_threshold=2.0, quantize_self_kv=True,
+                                 tokenizer=LetterTokenizer())
+    plain = dataclasses.replace(tr, word_timestamps=False, hallucination_silence_threshold=None)
+    audio = speech_like(WORDS_AUDIO_S, 5)
+    stages: dict[str, list] = {"maps": [], "costs": [], "dtw": []}
+    real = {name: getattr(align, name) for name in ("alignment_maps", "alignment_costs",
+                                                     "dtw_starts")}
+
+    def timed(name, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            stages[key].append((1e3 * (time.perf_counter() - t0), out, args))
+            return out
+        return run
+
+    cold = tr.transcribe(audio)
+    torch.cuda.synchronize()
+    for name, key in (("alignment_maps", "maps"), ("alignment_costs", "costs"),
+                      ("dtw_starts", "dtw")):
+        setattr(align, name, timed(name, key))
+    try:
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm = tr.transcribe(audio)
+        torch.cuda.synchronize()
+        words_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_counts(counters, (), "transcribe_words")
+    finally:
+        for name, fn in real.items():
+            setattr(align, name, fn)
+    t0 = time.perf_counter()
+    without = plain.transcribe(audio)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for out in (cold, warm, without):
+        check_segments(out, WORDS_AUDIO_S, "transcribe_words")
+    if not all(0.0 <= w["start"] <= w["end"] <= WORDS_AUDIO_S + 1e-6 for w in warm["words"]):
+        fail("transcribe_words: a word outside the recording")
+    # the C++ DTW against its twin on this run's costs
+    dtw_native_ms, dtw_twin_ms, equal = [], [], True
+    for _, (cost, rows, frames), _ in stages["costs"]:
+        t0 = time.perf_counter()
+        native = dtw.dtw_native(cost, rows, frames)
+        dtw_native_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        twin = dtw.dtw_wavefront(cost, rows, frames)
+        dtw_twin_ms.append(1e3 * (time.perf_counter() - t0))
+        equal &= bool(np.array_equal(native, twin))
+    if not (stages["costs"] and equal):
+        fail(f"transcribe_words: C++ DTW starts equal the twin's: {equal} "
+             f"over {len(stages['costs'])} slabs")
+    cost_shapes = [list(c[1][0].shape) for c in stages["costs"]]
+    return {
+        "phase": "transcribe_words", "card": card, "model": f"{WORDS_MODEL} (random weights)",
+        "options": "word_timestamps, hallucination_silence_threshold=2.0, quantize_self_kv",
+        "audio_s": WORDS_AUDIO_S, "windows": math.ceil(len(audio) / 480_000),
+        "slabs": len(stages["maps"]), "dtw_cost_shapes": cost_shapes,
+        "teacher_forced_ms_per_slab": [m[0] for m in stages["maps"]],
+        "host_chain_ms_per_slab": [m[0] for m in stages["costs"]],
+        "dtw_ms_per_slab_in_run": [m[0] for m in stages["dtw"]],
+        "dtw_native_ms_per_slab": dtw_native_ms, "dtw_twin_ms_per_slab": dtw_twin_ms,
+        "dtw_native_equals_twin": equal,
+        "cold_wall_s": audio.size / 16_000 / cold["rtf_x"],
+        "warm_wall_s_with_words": words_s, "warm_wall_s_without_words": plain_s,
+        "warm_rtf_x_with_words": WORDS_AUDIO_S / words_s,
+        "warm_rtf_x_without_words": WORDS_AUDIO_S / plain_s,
+        "words": len(warm["words"]), "segments": len(warm["segments"]),
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
 def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder: bool = False,
                 decoder: str = "int4", counters=()) -> dict:
     """The JAX package's bench.py headline workload on the port: int16 30 s
     chunks -> log-mel -> encode -> 96-token decode, EOT suppressed, bf16,
     ``bs`` windows a batch (bench.py and the Transcriber's default slab use
     128).  ``decoder``: "int4" greedy (kernel B, the default), "int8-kernel"
-    greedy (the int8 kernel) or "beam5" (beam search over the int4 cache);
+    greedy (the int8 kernel), "beam5" (beam search over the int4 cache) or
+    "int4-self-int8-w8" (int4 greedy with the int8 self cache on int8
+    decoder weights, bench.py's --self-kv-int8 --int8-weights: the bf16
+    weights quantized, their scales float32);
     ``fused_encoder`` runs encoder attention through its kernel (bench.py
     --fused-encoder).  ``counters`` are zeroed before the timed batches and
     read after them."""
-    from audio_processor_tpu_torch.models.whisper import decode, model
+    from audio_processor_tpu_torch.models.whisper import decode, model, quantize
     from audio_processor_tpu_torch.ops import frontend
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 
@@ -1062,11 +1214,15 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder:
     kw = dict(sot_sequence=tuple(st.sot_sequence()), max_new_tokens=tokens, use_timestamps=True,
               suppress_mask=suppress, dtype_name="bfloat16", quantize_cross_kv=True)
 
+    params8 = quantize.quantize_decoder(tr.params) if decoder == "int4-self-int8-w8" else None
+
     def run_decode(states):
         if decoder == "beam5":
             return decode.beam_decode(tr.params, cfg, states, beam_size=5, kv_bits=4, **kw)
         if decoder == "int8-kernel":
             return decode.greedy_decode(tr.params, cfg, states, kv_bits=8, use_pallas_kernel=True, **kw)
+        if params8 is not None:
+            return decode.greedy_decode(params8, cfg, states, kv_bits=4, quantize_self_kv=True, **kw)
         return decode.greedy_decode(tr.params, cfg, states, kv_bits=4, **kw)
 
     # warm-up, which also reads the peak memory of each half at this batch
@@ -1286,8 +1442,9 @@ def phase_serve(dev, card: str) -> tuple[dict, dict]:
     the end (every stage timed; one job's decoded tokens, turns and fused
     segments held to direct calls on the same audio; kernels A and B
     counted); then 4 concurrent ``/v1`` uploads, which must coalesce and
-    each equal its own ``transcribe``, an srt request and the word
-    granularity's 400.  The jobs run again under the profiler for the
+    each equal its own ``transcribe``, an srt request and a word-granularity
+    request, whose words must equal a direct ``transcribe`` with
+    word_timestamps.  The jobs run again under the profiler for the
     card's busy share."""
     import shutil
     import statistics
@@ -1501,12 +1658,15 @@ def phase_serve(dev, card: str) -> tuple[dict, dict]:
         status, word = http_call("POST", base + "/v1/audio/transcriptions", *multipart(
             {"response_format": "verbose_json", "timestamp_granularities[]": "word"},
             "a.wav", clips[0][1]))
-        if status != 400 or word["error"]["param"] != "timestamp_granularities":
+        direct = dataclasses.replace(tr, word_timestamps=True).transcribe(
+            ingest.load_audio(clips[0][0]))
+        want = [{"word": w["word"], "start": w["start"], "end": w["end"]}
+                for seg in direct["segments"] for w in seg["words"]]
+        if status != 200 or word.get("words") != want:
             fail(f"serve: the word granularity answered {status}: {word}")
         out["v1"] = {"uploads": len(clips), "audio_s": list(SERVE_V1_S), "wall_s": v1_wall,
                      "batch_stats": stats, "texts_equal_own_transcribe": True,
-                     "srt_status": srt_status, "word_status": status,
-                     "word_message": word["error"]["message"]}
+                     "srt_status": srt_status, "word_status": status, "v1_words": len(want)}
         out["launches_v1"] = v1_launches
 
         # the same three jobs again, under the profiler: the card's busy share
@@ -1720,7 +1880,7 @@ def main(argv: list[str] | None = None) -> None:
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn",
-                        "cross_attn_probes"], ptxas_report=True)
+                        "cross_attn_probes", "dtw"], ptxas_report=True)
     # per kernel: its name, then its registers and its spills; kernel B's
     # library must convert nibbles without an int-to-float instruction
     i2f = sass_i2f(build, "cross_attn_int4")
@@ -1787,7 +1947,11 @@ def main(argv: list[str] | None = None) -> None:
     kernels["cross_attn_int8"]["launches"] = int8["launches"]["cross_attention_int8"]
     emit(phase_bench(dev, tr, bs=32, n_timed=2, profile=False, decoder="beam5",
                      counters=[cross_attention_int4_stacked]))
+    emit(phase_bench(dev, tr, bs=32, n_timed=3, profile=False, decoder="int4-self-int8-w8",
+                     counters=[cross_attention_int4_stacked]))
     del tr
+    torch.cuda.empty_cache()
+    emit(phase_transcribe_words(dev, [log_mel, cross_attention_int4_stacked], card))
     torch.cuda.empty_cache()
     serve, serve_launches = phase_serve(dev, card)
     emit(serve)

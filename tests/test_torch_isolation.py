@@ -36,6 +36,9 @@ def test_every_port_module_imports_without_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
+        # the word-timestamp and int8 modules are among them
+        for name in ("models.whisper.align", "models.whisper.quantize", "ops.kernels.dtw"):
+            assert pkg.__name__ + "." + name in names, name
         leaked = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not leaked, leaked

@@ -2,9 +2,10 @@
 card: A (log-mel, on Whisper's 30 s windows and the diarizer's 10 s and
 6 s ones), B (int4 cross-attention, stacked and single-layer), #5
 (kernel B on a model rank's heads), the int8 cross-attention and the
-encoder self-attention; and the paths that run them (greedy, int8-kernel
-greedy and beam decodes, the bundled Diarizer) against the CPU's
-results.
+encoder self-attention; the C++ DTW of the word timestamps against its
+numpy twin; and the paths that run them (greedy, int8-kernel greedy and
+beam decodes, with the int8 self cache too, the bundled Diarizer) against
+the CPU's results.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  This file imports neither jax nor the JAX package,
@@ -22,6 +23,7 @@ from audio_processor_tpu_torch.models.whisper import decode, model
 from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
 from audio_processor_tpu_torch.ops import frontend
 from audio_processor_tpu_torch.ops.kernels import decode_attention as da
+from audio_processor_tpu_torch.ops.kernels import dtw
 from audio_processor_tpu_torch.ops.kernels import encoder_attention as ea
 from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
 from audio_processor_tpu_torch.parallel.mesh import Mesh, split_bounds
@@ -250,6 +252,10 @@ SMALL = WhisperConfig(name="small-test", n_mels=80, n_audio_ctx=96, n_audio_stat
      da.cross_attention_int4_stacked),
     ("beam2-int8-kernel", dict(beam_size=2, quantize_cross_kv=True, kv_bits=8,
                                use_pallas_kernel=True), da.cross_attention_int8),
+    ("greedy-int4-self-int8", dict(quantize_cross_kv=True, kv_bits=4, quantize_self_kv=True),
+     da.cross_attention_int4_stacked),
+    ("beam3-int4-self-int8", dict(beam_size=3, quantize_cross_kv=True, kv_bits=4,
+                                  quantize_self_kv=True), da.cross_attention_int4_stacked),
 ])
 def test_decode_on_card_matches_cpu(dev, kind, kw, counter):
     """Float32 decodes on a small config: the card path (through the
@@ -561,3 +567,21 @@ def test_probe_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         pa.int8_dot(q, k4, v4, 0, valid_len=1500, cache="int4", pv="f32")
     assert (pa.probe_stream.launches, pa.int4_rows.launches, pa.int8_dot.launches) == before
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dtw_native_equals_twin(dev, seed):
+    """The C++ DTW (csrc/dtw.cu) gives the numpy twin's starts exactly: on
+    tie plateaus, on a padded batch of rows of other sizes, and at the word
+    path's shape (a slab of 8 rows of 229 x 1,500)."""
+    rng = np.random.default_rng(seed)
+    plateaus = (np.round(rng.uniform(0, 1, (6, 40, 300)) * 3) / 3).astype(np.float32)
+    rows, frames = np.array([40, 3, 0, 17, 40, 1]), np.array([300, 5, 10, 299, 1, 300])
+    full = rng.normal(size=(8, 229, 1500)).astype(np.float32)
+    for cost, t, ta in ((plateaus, rows, frames), (full, 229, 1500)):
+        before = dtw.dtw_native.launches
+        got = dtw.dtw_starts(cost, t, ta, dev)
+        assert dtw.dtw_native.launches == before + 1
+        np.testing.assert_array_equal(got, dtw.dtw_wavefront(cost, t, ta))
+    with pytest.raises(ValueError):
+        dtw.dtw_native(plateaus, 41, 300)

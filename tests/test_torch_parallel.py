@@ -416,11 +416,13 @@ def case_decode(tree, states, kw, beam, temperature=0.0, best_of=2):
     return res.tokens.numpy(), res.no_speech_prob.numpy()
 
 
-@pytest.mark.parametrize("cache", ["float", "int4"])
+@pytest.mark.parametrize("cache", ["float", "int4", "int4-self-int8"])
 def test_tp_greedy_and_beam_equal_jax(world, jparams, jtree, cache):
     """JAX ``test_parallel.py:61-98`` on dp2 x tp2: greedy and beam-3 tokens
     equal to JAX's single-device decode, no-speech probabilities within
-    1e-5; with the int4 cache the cross-attention runs kernel #5's path."""
+    1e-5; with the int4 cache the cross-attention runs kernel #5's path.
+    The int8 self cache's per-token scales are per head, so each model
+    rank quantizes its own heads as the whole cache would."""
     from audio_processor_tpu.models.whisper import decode as jdecode
     from audio_processor_tpu.models.whisper import model as jmodel
     from audio_processor_tpu.models.whisper.config import WhisperConfig as JConfig
@@ -428,7 +430,8 @@ def test_tp_greedy_and_beam_equal_jax(world, jparams, jtree, cache):
     jcfg = JConfig(name="shard-test", **DIMS)
     mel = np.random.default_rng(1).normal(0, 1, (4, 80, 64)).astype(np.float32)
     states = np.asarray(jmodel.encode(jparams, jcfg, mel))
-    kw = (dict(quantize_cross_kv=True, kv_bits=4) if cache == "int4" else {})
+    kw = {"float": {}, "int4": dict(quantize_cross_kv=True, kv_bits=4),
+          "int4-self-int8": dict(quantize_cross_kv=True, kv_bits=4, quantize_self_kv=True)}[cache]
     st = jdecode.SpecialTokens.for_config(jcfg)
     jkw = dict(kw, sot_sequence=tuple(st.sot_sequence()), max_new_tokens=8)
     refs = {False: jdecode.greedy_decode(jparams, jcfg, states, **jkw),

@@ -8,9 +8,8 @@ events, metrics in JSON and Prometheus form, the API-key gate) on the
 vtt and verbose_json, translations, models, error envelopes, streaming),
 on the same weights (``convert.params_from_jax``, float32).  Responses
 must be equal once job ids and times are masked and floats are rounded to
-1e-4.  The one exception is ``timestamp_granularities[]=word``: the
-port's Transcriber has no word timestamps yet, so it answers 400 naming
-the option.  The store, engine, cancel and redis cases of
+1e-4, the word-timestamp requests (``timestamp_granularities[]=word``)
+included.  The store, engine, cancel and redis cases of
 ``tests/test_runtime_server.py`` then run against the port.
 """
 import io
@@ -277,8 +276,7 @@ def test_script_equals_jax(logs):
     jlog, log = logs["jax"], logs["port"]
     assert [e[0] for e in log] == [e[0] for e in jlog]
     for ours, ref in zip(log, jlog):
-        if ours[0] != WORD:
-            assert ours == ref, ours[0]
+        assert ours == ref, ours[0]
     by_label = dict((e[0], e) for e in log)
     # the script reached what it meant to: a completed job with segments,
     # and /v1 text
@@ -288,17 +286,15 @@ def test_script_equals_jax(logs):
     assert by_label["gated /api/jobs"][1] == 401 and by_label["key /api/jobs"][1] == 200
 
 
-def test_word_granularity_is_a_400_naming_the_option(logs):
-    """JAX serves word timestamps; the port's Transcriber refuses
-    ``word_timestamps`` at construction, which the endpoint turns into a
-    400 (not a 500) that names the option."""
-    jstatus, jdata = dict((e[0], e) for e in logs["jax"])[WORD][1:3]
-    status, data = dict((e[0], e) for e in logs["port"])[WORD][1:3]
-    assert jstatus == 200 and "words" in jdata
-    assert status == 400
-    assert data["error"]["param"] == "timestamp_granularities"
-    assert "word_timestamps" in data["error"]["message"]
-    assert "not ported" in data["error"]["message"]
+def test_word_granularity_equals_jax(logs):
+    """Once a 400 naming the option (the port had no word timestamps);
+    now both requests for word granularity answer 200 with JAX's words."""
+    jlog, log = dict((e[0], e) for e in logs["jax"]), dict((e[0], e) for e in logs["port"])
+    for label in (WORD, "v1 {'timestamp_granularities[]': 'word'}"):
+        assert log[label] == jlog[label], label
+    status, data = log[WORD][1:3]
+    assert status == 200 and data["words"]
+    assert {"word", "start", "end"} <= set(data["words"][0])
 
 
 # ---------------------------------------------------------------------------

@@ -155,11 +155,23 @@ def test_language_out_of_range_fails_at_startup(monkeypatch):
                                 diarization=False, device="cpu")
 
 
-def test_word_timestamps_env_raises_not_ported(monkeypatch):
-    monkeypatch.setenv("APTPU_WORD_TIMESTAMPS", "1")
-    with pytest.raises(NotImplementedError, match="word_timestamps"):
-        services.build_services(model="test", with_drive=False, with_llm=False,
-                                diarization=False, device="cpu")
+@pytest.mark.parametrize("env", [
+    dict(APTPU_WORD_TIMESTAMPS="1"), dict(APTPU_HALLUCINATION_SILENCE_S="2.5"),
+])
+def test_word_timestamps_env_builds_what_jax_builds(env, monkeypatch):
+    """Once a NotImplementedError (the port had no word timestamps); now the
+    word-timestamp environment builds JAX's Transcriber fields."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jsvc, svc = build_both()
+    try:
+        jt, t = jsvc.processor.transcriber, svc.processor.transcriber
+        assert len(assert_same_settings(jt, t)) >= 30
+        assert t.word_timestamps
+        assert t.hallucination_silence_threshold == jt.hallucination_silence_threshold
+    finally:
+        jsvc.engine.shutdown(wait=False)
+        svc.engine.shutdown(wait=False)
 
 
 def test_model_path_serves_embedded_tokenizer(tmp_path):

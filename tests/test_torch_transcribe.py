@@ -152,14 +152,13 @@ def test_language_voting_equal_jax(speech_like_audio):
     assert out["language"] == pt._language_code() is not None
 
 
-@pytest.mark.parametrize("option", [
-    dict(word_timestamps=True), dict(quantize_self_kv=True),
-    dict(word_timestamps=True, hallucination_silence_threshold=2.0),
-    dict(hallucination_silence_threshold=2.0),
-])
-def test_later_slice_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        Transcriber.random_init("test", device="cpu", **option)
+def test_hallucination_threshold_without_words_raises():
+    """Once the refusal of the options a later slice brought; now JAX's
+    check: the threshold reads word probabilities, so it needs
+    word_timestamps (``tests/test_torch_transcribe_words.py`` holds the
+    options themselves to JAX)."""
+    with pytest.raises(ValueError, match="word_timestamps"):
+        Transcriber.random_init("test", device="cpu", hallucination_silence_threshold=2.0)
 
 
 # the options this slice ports, each against the JAX Transcriber
@@ -171,6 +170,11 @@ PORTED_OPTIONS = {
     "prefix": dict(prefix="so"),
     "cross_kv_bits8": dict(cross_kv_bits=8),
     "fused_encoder": dict(use_pallas_encoder_attn=True),
+    "quantize_self_kv": dict(quantize_self_kv=True),
+    "quantize_self_kv-condition-beam2": dict(
+        quantize_self_kv=True, beam_size=2, condition_on_previous_text=True,
+        condition_group_size=2,
+    ),
     "beam3-condition-prompt": dict(
         beam_size=3, condition_on_previous_text=True, condition_group_size=2,
         initial_prompt="hello", patience=2.0, length_penalty=1.0,

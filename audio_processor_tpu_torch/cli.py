@@ -11,12 +11,23 @@
     python -m audio_processor_tpu_torch.cli diarize meeting.wav --json
     python -m audio_processor_tpu_torch.cli process meeting.wav --model-path small.npz
 
+    python -m audio_processor_tpu_torch.cli convert-whisper small.pt small.npz \
+        --tokenizer multilingual.tiktoken      # or an HF checkpoint directory
+    python -m audio_processor_tpu_torch.cli convert-diarizer seg.ckpt emb.pt diarizer.npz
+    python -m audio_processor_tpu_torch.cli finetune-whisper manifest.jsonl \
+        --model-path small.npz --out tuned.npz
+    python -m audio_processor_tpu_torch.cli train-segmentation --out seg.npz
+    python -m audio_processor_tpu_torch.cli train-embedding --out emb.npz
+    python -m audio_processor_tpu_torch.cli calibrate-alignment-heads tuned.npz speech.wav --write
+
 ``transcribe`` takes the JAX package's flags (openai-whisper's CLI
 options).  Without --model-path (--npz) the weights are random (seeded):
 the flow runs end to end, the text is meaningless.  ``diarize`` serves the
 repo's bundled synthetic-pretrained nets (random weights when they are
 absent).  ``process`` runs the full 9-stage meeting job on a local file,
 with no Drive, LLM or Notion, and prints the job's status as JSON.
+The converters are host work (numpy, and ``torch.load`` for ``.pt``
+files); the trainers and the calibration run on --device.
 --device defaults to the card; --device cpu runs the plain PyTorch path.
 
 Sharded serving, one process a rank (``torchrun`` sets the topology; rank 0
@@ -359,6 +370,267 @@ def cmd_process(args) -> None:
     engine.shutdown(wait=False)
 
 
+def cmd_convert_whisper(args) -> None:
+    from .models.whisper import convert
+    from .models.whisper.tokenizer import load_tokenizer_file
+
+    if os.path.isdir(args.checkpoint):
+        # a HF checkpoint directory: safetensors + json, the vocab embedded
+        # from its vocab.json/merges.txt
+        params, cfg, tokenizer = convert.load_hf_checkpoint(args.checkpoint)
+    else:
+        params, cfg = convert.load_openai_checkpoint(args.checkpoint)
+        tokenizer = None
+    if args.tokenizer:
+        tokenizer = load_tokenizer_file(args.tokenizer)
+    if tokenizer is None:
+        print(
+            "WARNING: no tokenizer found/given — the .npz will have no "
+            "embedded vocab and serving will fall back to the byte "
+            "tokenizer (garbage text on real weights).  Pass the "
+            "checkpoint's multilingual.tiktoken / gpt2.tiktoken (or HF "
+            "vocab.json) via --tokenizer.",
+            file=sys.stderr,
+        )
+    convert.save_params(args.out, params, cfg, tokenizer=tokenizer)
+    print(f"converted {args.checkpoint} -> {args.out} ({cfg.n_audio_state}d, "
+          f"{cfg.n_audio_layer}+{cfg.n_text_layer} layers"
+          f"{', vocab embedded' if tokenizer else ''})")
+
+
+def cmd_convert_diarizer(args) -> None:
+    """pyannote segmentation + ResNet embedding checkpoints -> one .npz.
+    The files are unpickled (``weights_only=False``): convert only
+    checkpoints you trust."""
+    import torch
+
+    from .models.diarization import convert as dconvert
+
+    def state_dict(path):
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+        return sd
+
+    seg_params, _ = dconvert.from_pyannet_state_dict(state_dict(args.segmentation))
+    emb_params, _ = dconvert.from_resnet_state_dict(state_dict(args.embedding))
+    dconvert.save_diarizer_params(args.out, seg_params, emb_params)
+    print(f"converted -> {args.out}")
+
+
+def _window_log_mels(audios: list, n_samples: int, n_mels: int, device) -> "np.ndarray":
+    """Each recording's first n_samples, zero-padded, -> log-mel (N, n_mels,
+    n_samples // 160) as float32 numpy.  The windows are stacked and go
+    through ``log_mel`` (kernel A on the card) up to 128 at a launch."""
+    import numpy as np
+    import torch
+
+    from .ops.kernels.log_mel import log_mel
+
+    stack = np.zeros((len(audios), n_samples), np.float32)
+    for i, audio in enumerate(audios):
+        piece = audio[:n_samples]
+        stack[i, : len(piece)] = piece
+    out = []
+    for lo in range(0, len(stack), 128):
+        x = torch.from_numpy(stack[lo : lo + 128]).to(device)
+        out.append(log_mel(x, n_mels).cpu().numpy())
+    return np.concatenate(out)
+
+
+def cmd_finetune_whisper(args) -> None:
+    """Fine-tune Whisper on a manifest of (audio, transcript) pairs: one
+    JSON object a line, {"audio": "path.wav", "text": "..."}.  One process;
+    the sharded dp x tp step is ``training/train_step`` under a mesh."""
+    import numpy as np
+    import torch
+
+    from .models.whisper import convert, decode as decode_lib, model as model_lib
+    from .models.whisper.config import get_config
+    from .models.whisper.tokenizer import ByteTokenizer, language_index, load_tokenizer_file
+    from .ops import frontend
+    from .pipeline import ingest
+    from .runtime.device import resolve_device
+    from .training import train_step as ts
+
+    items = []
+    with open(args.manifest) as fh:
+        for line in fh:
+            if line.strip():
+                items.append(json.loads(line))
+    if not items:
+        raise SystemExit("empty manifest")
+
+    device = resolve_device(args.device)
+    if args.model_path:
+        params, cfg = convert.load_params(args.model_path, device)
+    else:
+        cfg = get_config(args.model)
+        params = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    st = decode_lib.SpecialTokens.for_config(cfg)
+    # the training text is tokenized with the checkpoint's vocab: --tokenizer
+    # > the vocab embedded in the .npz > ByteTokenizer (random weights only)
+    if args.tokenizer:
+        tokenizer = load_tokenizer_file(args.tokenizer)
+    elif args.model_path:
+        tokenizer = convert.load_tokenizer(args.model_path)
+        if tokenizer is None:
+            raise SystemExit(
+                f"{args.model_path} has no embedded tokenizer — pass "
+                "--tokenizer, or re-convert with convert-whisper --tokenizer. "
+                "Refusing to fine-tune real weights against byte ids."
+            )
+    else:
+        tokenizer = ByteTokenizer()
+    lang = language_index(args.language, num_languages=None) if args.language else None
+    sot_seq = st.sot_sequence(language=lang, timestamps=False)
+
+    # the dataset: 30 s log-mel windows + teacher-forced token rows
+    n_samples = 2 * cfg.n_audio_ctx * frontend.HOP_LENGTH
+    max_t = args.max_tokens
+    if max_t < len(sot_seq) + 2:
+        raise SystemExit(
+            f"--max-tokens {max_t} cannot hold the {len(sot_seq)}-token sot "
+            "sequence plus at least one text token and <|eot|>"
+        )
+    mels = _window_log_mels([ingest.load_audio(it["audio"]) for it in items],
+                           n_samples, cfg.n_mels, device)
+    tins, touts, masks = [], [], []
+    for it in items:
+        toks = [int(t) for t in tokenizer.encode(" " + it["text"].strip()) if int(t) < st.eot]
+        seq = list(sot_seq) + toks[: max_t - len(sot_seq) - 1] + [st.eot]
+        ti = np.full(max_t, st.eot, np.int64)
+        to = np.full(max_t, st.eot, np.int64)
+        mk = np.zeros(max_t, np.float32)
+        ti[: len(seq) - 1] = seq[:-1]
+        to[: len(seq) - 1] = seq[1:]
+        # loss on the text and <|eot|>, not on predicting the sot prefix
+        mk[len(sot_seq) - 1 : len(seq) - 1] = 1.0
+        tins.append(ti)
+        touts.append(to)
+        masks.append(mk)
+    tins, touts, masks = np.stack(tins), np.stack(touts), np.stack(masks)
+
+    state = ts.TrainState(params, ts.make_optimizer(args.lr).init(ts.tree_leaves(params)), 0)
+    rng = np.random.default_rng(args.seed)
+    first_loss = last_loss = None
+    for step in range(args.steps):
+        idx = rng.integers(0, len(items), args.batch)
+        batch = ts.Batch(*(torch.from_numpy(a[idx]).to(device) for a in (mels, tins, touts, masks)))
+        state, loss = ts.train_step(state, cfg, batch, lr=args.lr)
+        last_loss = float(loss)
+        if first_loss is None:
+            first_loss = last_loss
+        if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
+            print(f"step {step:5d}  loss {last_loss:.4f}", file=sys.stderr)
+    if first_loss is not None:
+        print(f"loss {first_loss:.4f} -> {last_loss:.4f} over {args.steps} steps")
+    else:
+        print(f"no training steps ran (--steps {args.steps})", file=sys.stderr)
+    if args.out:
+        convert.save_params(
+            args.out, state.params, cfg,
+            tokenizer=None if isinstance(tokenizer, ByteTokenizer) else tokenizer,
+        )
+        print(f"saved {args.out} (serve with `transcribe --model-path {args.out}`)")
+
+
+def cmd_train_segmentation(args) -> None:
+    """Train the TPU-first segmentation net with the powerset loss, on
+    synthetic mixtures (hermetic training and calibration)."""
+    import numpy as np
+    import torch
+
+    from .models.diarization import segmentation_tpu as seg
+    from .models.diarization.segmentation import powerset_matrix
+    from .runtime.device import resolve_device
+    from .training import diarization_trainer as dt
+
+    device = resolve_device(args.device)
+    cfg = seg.TpuSegmentationConfig(window_s=args.window_s)
+    member = powerset_matrix(cfg)
+    lut = dt.powerset_lookup(member)
+    member_t, lut_t = torch.from_numpy(member).to(device), torch.from_numpy(lut).to(device)
+    rng = np.random.default_rng(args.seed)
+    state = dt.init_train_state(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                                lr=args.lr)
+    for step in range(args.steps):
+        xs, ys = zip(*(dt.synth_mixture(rng, cfg) for _ in range(args.batch)))
+        state, loss = dt.train_step(
+            state, cfg, torch.from_numpy(np.stack(xs)).to(device),
+            torch.from_numpy(np.stack(ys)).to(device), member_t, lut_t, lr=args.lr,
+        )
+        if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
+            print(f"step {step:4d}  powerset loss {float(loss):.4f}")
+    if args.out:
+        dt.save_params(args.out, state.params, cfg)
+        print(f"saved trained segmentation -> {args.out} "
+              f"(serve with `diarize --segmentation-path {args.out}` or "
+              f"Diarizer.from_tpu_segmentation)")
+
+
+def cmd_train_embedding(args) -> None:
+    """Train the speaker-embedding net with AAM-softmax on synthetic
+    speakers; the trained cosine space is what AHC clusters on."""
+    import numpy as np
+    import torch
+
+    from .models.diarization import embedding as emb
+    from .runtime.device import resolve_device
+    from .training import embedding_trainer as et
+
+    device = resolve_device(args.device)
+    cfg = emb.EmbeddingConfig(crop_s=args.crop_s)
+    rng = np.random.default_rng(args.seed)
+    f0s = tuple(90.0 * (1.45 ** i) for i in range(args.speakers))
+    state = et.init_train_state(cfg, args.speakers,
+                                torch.Generator(device=device).manual_seed(args.seed), lr=args.lr)
+    for step in range(args.steps):
+        labels = rng.integers(0, args.speakers, args.batch)
+        crops = np.stack([et.synth_speaker_crop(rng, f0s[s], cfg) for s in labels])
+        state, loss = et.train_step(state, cfg, torch.from_numpy(crops).to(device),
+                                    torch.from_numpy(labels).to(device), lr=args.lr)
+        if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
+            print(f"step {step:4d}  aam loss {float(loss):.4f}")
+    if args.out:
+        et.save_params(args.out, state.params, cfg)
+        print(f"saved trained embedding -> {args.out} "
+              f"(serve with `diarize --embedding-path {args.out}`)")
+
+
+def cmd_calibrate_alignment_heads(args) -> None:
+    """Measure a word-timestamp alignment-head mask for a checkpoint: decode
+    one recording, score every cross-attention head by the mass it puts on
+    its own monotonic DTW path, print the winners and (with --write) store
+    them in the .npz, keeping its embedded vocab."""
+    import dataclasses
+
+    from .models.whisper import align, convert
+    from .pipeline import ingest
+    from .pipeline.transcribe import Transcriber
+
+    # weights_dtype=None: --write re-saves the .npz, and the default
+    # compute-dtype cast would round the stored f32 weights to bf16
+    t = Transcriber.from_npz(args.checkpoint, weights_dtype=None, device=args.device)
+    audio = ingest.load_audio(args.audio)
+    states = t._frontend_encode(t._chunk_slab(audio, [0], 1))
+    result = t._run_decode(states)
+    tokens = result.tokens[:1].cpu().numpy()
+    # calibrate under the sot prefix serving aligns with
+    lang = t._active_language if t._active_language is not None else t.language
+    pairs = align.calibrate_alignment_heads(
+        t.params, t.cfg, states[:1], tokens, t.special, top_k=args.top_k,
+        sot_sequence=t._sot_seq(lang),
+    )
+    print(json.dumps({"alignment_heads": [list(p) for p in pairs]}))
+    if args.write:
+        cfg2 = dataclasses.replace(t.cfg, alignment_heads=pairs)
+        # read the embedded vocab before savez rewrites the file
+        embedded = convert.load_tokenizer(args.checkpoint)
+        convert.save_params(args.checkpoint, t.params, cfg2, tokenizer=embedded)
+        print(f"wrote alignment heads into {args.checkpoint}", file=sys.stderr)
+
+
 def _model_args(p) -> None:
     p.add_argument("--model", default="tiny", help="preset for random weights")
     p.add_argument("--model-path", "--npz", dest="model_path",
@@ -513,6 +785,71 @@ def main(argv: list[str] | None = None) -> None:
     _model_args(dl)
     dl.add_argument("--json", action="store_true")
     dl.set_defaults(fn=cmd_detect_language)
+
+    c = sub.add_parser("convert-whisper",
+                       help="openai .pt OR HF checkpoint dir (torch-free) -> native .npz")
+    c.add_argument("checkpoint", help="openai .pt file, or a HF Whisper checkpoint directory "
+                   "(config.json + model.safetensors; read without torch)")
+    c.add_argument("out")
+    c.add_argument("--tokenizer", help="embed this vocab (multilingual/gpt2.tiktoken or HF "
+                   "vocab.json) into the .npz so serving needs no separate asset")
+    c.set_defaults(fn=cmd_convert_whisper)
+
+    cd = sub.add_parser("convert-diarizer", help="pyannote+ResNet ckpts -> .npz")
+    cd.add_argument("segmentation", help="pyannote PyanNet checkpoint (.ckpt/.pt)")
+    cd.add_argument("embedding", help="ResNet34 embedding checkpoint (.pt)")
+    cd.add_argument("out")
+    cd.set_defaults(fn=cmd_convert_diarizer)
+
+    ft = sub.add_parser("finetune-whisper",
+                        help="fine-tune Whisper on a jsonl manifest of {audio, text} pairs")
+    ft.add_argument("manifest", help="jsonl: {\"audio\": path, \"text\": str}")
+    ft.add_argument("--model", default="tiny")
+    ft.add_argument("--model-path", dest="model_path", help="start from a converted .npz")
+    ft.add_argument("--tokenizer", help="tokenizer asset for the training text (default: "
+                    "the checkpoint's embedded vocab)")
+    ft.add_argument("--language", help="ISO code pinned into the sot sequence")
+    ft.add_argument("--steps", type=int, default=200)
+    ft.add_argument("--batch", type=int, default=8)
+    ft.add_argument("--lr", type=float, default=1e-4)
+    ft.add_argument("--max-tokens", type=int, default=128, dest="max_tokens")
+    ft.add_argument("--seed", type=int, default=0)
+    ft.add_argument("--out", help="save fine-tuned params to this .npz")
+    ft.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ft.set_defaults(fn=cmd_finetune_whisper)
+
+    ts = sub.add_parser("train-segmentation",
+                        help="train the TPU-first segmentation net (powerset loss)")
+    ts.add_argument("--steps", type=int, default=100)
+    ts.add_argument("--batch", type=int, default=8)
+    ts.add_argument("--lr", type=float, default=1e-3)
+    ts.add_argument("--window-s", type=float, default=10.0, dest="window_s")
+    ts.add_argument("--seed", type=int, default=0)
+    ts.add_argument("--out", help="save trained params to this .npz")
+    ts.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ts.set_defaults(fn=cmd_train_segmentation)
+
+    te = sub.add_parser("train-embedding",
+                        help="train the speaker-embedding net (AAM-softmax, synthetic speakers)")
+    te.add_argument("--steps", type=int, default=100)
+    te.add_argument("--batch", type=int, default=16)
+    te.add_argument("--lr", type=float, default=1e-3)
+    te.add_argument("--speakers", type=int, default=8)
+    te.add_argument("--crop-s", type=float, default=3.0, dest="crop_s")
+    te.add_argument("--seed", type=int, default=0)
+    te.add_argument("--out", help="save trained params to this .npz")
+    te.add_argument("--device", default=None, help="cuda (default) or cpu")
+    te.set_defaults(fn=cmd_train_embedding)
+
+    ch = sub.add_parser("calibrate-alignment-heads",
+                        help="measure + store a word-timestamp head mask for a checkpoint")
+    ch.add_argument("checkpoint", help="converted .npz checkpoint")
+    ch.add_argument("audio", help="calibration recording (speech)")
+    ch.add_argument("--top-k", type=int, default=6, dest="top_k")
+    ch.add_argument("--write", action="store_true",
+                    help="store the mask into the checkpoint's sidecar")
+    ch.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ch.set_defaults(fn=cmd_calibrate_alignment_heads)
 
     w = sub.add_parser("wer", help="word error rate between two text files")
     w.add_argument("reference")

@@ -1,10 +1,13 @@
 """Readers of the diarizer's ``.npz`` checkpoints, and the synthetic voice.
 
-The port has no training package, so the readers it needs live here, each
-a copy of its JAX origin with numpy leaves in place of jax arrays:
+The readers live here, beside the nets that serve them (the port's
+``training/`` and ``models/diarization/convert.py`` write the same files and
+import them from here), each a copy of its JAX origin with numpy leaves in
+place of jax arrays:
 
-- ``unflatten_tree``: ``training/pytree_io.unflatten_tree`` (dotted keys,
-  integer-keyed dicts back to lists);
+- ``flatten_tree`` / ``unflatten_tree``: ``training/pytree_io``'s (dotted
+  keys, integer-keyed dicts back to lists; ``sep="/"`` gives the converted
+  pack's keys);
 - ``load_segmentation_params``, ``load_onset``, ``load_decode_meta``:
   ``training/diarization_trainer.load_params``, ``load_onset``,
   ``load_decode_meta`` (the TPU-first segmentation net and its calibrated
@@ -24,6 +27,7 @@ The trees come back as numpy arrays in the JAX layouts; each net's
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .embedding import EmbeddingConfig
 from .segmentation_tpu import TpuSegmentationConfig
@@ -52,6 +56,25 @@ def _unflatten(flat: dict[str, np.ndarray], sep: str):
             node = node.setdefault(part, {})
         node[parts[-1]] = np.asarray(value)
     return _listify(tree)
+
+
+def flatten_tree(tree, prefix: str = "", sep: str = ".") -> dict[str, np.ndarray]:
+    """Nested dicts and lists -> {``sep``-joined key: numpy array}; tensors
+    come to the host and bf16 is widened to float32 (``np.savez`` has no
+    bfloat16)."""
+    items = tree.items() if isinstance(tree, dict) else ((str(i), v) for i, v in enumerate(tree))
+    flat: dict[str, np.ndarray] = {}
+    for k, v in items:
+        key = f"{prefix}{sep}{k}" if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            flat.update(flatten_tree(v, key, sep))
+        elif isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            flat[key] = (v.float() if v.dtype == torch.bfloat16 else v).numpy().copy()
+        else:
+            a = np.asarray(v)
+            flat[key] = a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+    return flat
 
 
 def unflatten_tree(flat: dict[str, np.ndarray]):

@@ -190,3 +190,29 @@ def params_from_jax(tree: dict[str, Any], cfg: EmbeddingConfig = EmbeddingConfig
         net.fc["w"].copy_(t(tree["fc"]["w"]))
         net.fc["b"].copy_(t(tree["fc"]["b"]))
     return net.to(device)
+
+
+def params_to_jax(net: ResNetEmbedding) -> dict[str, Any]:
+    """The inverse of ``params_from_jax``: a net -> the JAX package's tree
+    of float32 numpy arrays (conv kernels back to (kh, kw, C_in, C_out))."""
+    def a(t):
+        return t.detach().cpu().float().numpy().copy()
+
+    def conv(w):
+        return a(w.permute(2, 3, 1, 0))
+
+    def bn(p):
+        return {k: a(p[k]) for k in ("scale", "bias", "mean", "var")}
+
+    stages = []
+    for stage in net.stages:
+        blocks = []
+        for block in stage:
+            b = {"conv1": conv(block.conv1), "bn1": bn(block.bn1),
+                 "conv2": conv(block.conv2), "bn2": bn(block.bn2)}
+            if hasattr(block, "down_conv"):
+                b["down_conv"], b["down_bn"] = conv(block.down_conv), bn(block.down_bn)
+            blocks.append(b)
+        stages.append(blocks)
+    return {"stem_conv": conv(net.stem_conv), "stem_bn": bn(net.stem_bn), "stages": stages,
+            "fc": {"w": a(net.fc["w"]), "b": a(net.fc["b"])}}

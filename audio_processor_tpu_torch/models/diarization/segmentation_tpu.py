@@ -165,3 +165,20 @@ def params_from_jax(tree: dict[str, Any], cfg: TpuSegmentationConfig = TpuSegmen
             for leaf, value in getattr(net, name).items():
                 value.copy_(t(tree[name][leaf]))
     return net.to(device)
+
+
+def params_to_jax(net: TpuSegmentationNet) -> dict[str, Any]:
+    """The inverse of ``params_from_jax``: a net -> the JAX package's tree
+    of float32 numpy arrays (the conv stem back to (3, C_in, C_out))."""
+    def a(t):
+        return t.detach().cpu().float().numpy().copy()
+
+    tree: dict[str, Any] = {
+        name: {"w": a(getattr(net, name).weight.permute(2, 1, 0)), "b": a(getattr(net, name).bias)}
+        for name in ("conv1", "conv2")
+    }
+    tree["blocks"] = [{key: {leaf: a(v) for leaf, v in bp[key].items()} for key in _BLOCK_KEYS}
+                      for bp in net.blocks]
+    for name in ("ln_out", "classifier"):
+        tree[name] = {leaf: a(v) for leaf, v in getattr(net, name).items()}
+    return tree

@@ -183,7 +183,7 @@ def row_parallel_linear(p, x, mesh):
         part = torch.mm(x2, w, out_dtype=torch.float32)
     else:  # the exactly upcast operands
         part = torch.mm(x2.float(), w.float())
-    part = mesh_lib.all_reduce(part, mesh)
+    part = mesh_lib.reduce_from_model(part, mesh)
     if "b" in p:
         part = part + p["b"].float()
     return part.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
@@ -239,6 +239,7 @@ def self_attention(p, x, n_head, mask=None, fused=False, mesh=None):
     fused=True runs the encoder-attention kernel (the plain version on CPU
     tensors) when there is no mask; the default is the plain matmuls, as
     in JAX."""
+    x = mesh_lib.copy_to_model(x, mesh)
     q = split_heads(linear(p["q"], x), n_head)
     k = split_heads(linear(p["k"], x), n_head)
     v = split_heads(linear(p["v"], x), n_head)
@@ -250,6 +251,7 @@ def self_attention(p, x, n_head, mask=None, fused=False, mesh=None):
 
 
 def mlp(p, x, mesh=None):
+    x = mesh_lib.copy_to_model(x, mesh)
     return row_parallel_linear(p["fc2"], gelu(linear(p["fc1"], x)), mesh)
 
 
@@ -304,24 +306,28 @@ def decode_logits(
     *,
     pos_offset: int = 0,
     compute_dtype: torch.dtype = torch.float32,
+    mesh=None,
 ) -> torch.Tensor:
     """Teacher-forced decoder: tokens (B, T), audio (B, 1500, d) -> logits
-    (B, T, V) float32, under the causal mask."""
+    (B, T, V) float32, under the causal mask.  mesh: the params are this
+    model rank's slices (the sharded train step)."""
     p = params["decoder"]
+    n_head = local_heads(cfg.n_text_head, mesh)
     t = tokens.shape[1]
     x = p["token_emb"][tokens].to(compute_dtype)
     x = x + p["pos_emb"][pos_offset : pos_offset + t].to(compute_dtype)
     causal = causal_mask(t, tokens.device)
-    audio_states = audio_states.to(compute_dtype)
+    audio_states = mesh_lib.copy_to_model(audio_states.to(compute_dtype), mesh)
     for l in range(cfg.n_text_layer):
         bp = layer(p["blocks"], l)
-        x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_text_head, causal)
-        xa = layer_norm(bp["cross_attn_ln"], x)
-        q = split_heads(linear(bp["cross_attn"]["q"], xa), cfg.n_text_head)
-        k = split_heads(linear(bp["cross_attn"]["k"], audio_states), cfg.n_text_head)
-        v = split_heads(linear(bp["cross_attn"]["v"], audio_states), cfg.n_text_head)
-        x = x + linear(bp["cross_attn"]["out"], merge_heads(attention(q, k, v)))
-        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+        x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), n_head, causal, mesh=mesh)
+        xa = mesh_lib.copy_to_model(layer_norm(bp["cross_attn_ln"], x), mesh)
+        q = split_heads(linear(bp["cross_attn"]["q"], xa), n_head)
+        k = split_heads(linear(bp["cross_attn"]["k"], audio_states), n_head)
+        v = split_heads(linear(bp["cross_attn"]["v"], audio_states), n_head)
+        o = merge_heads(attention(q, k, v))
+        x = x + row_parallel_linear(bp["cross_attn"]["out"], o, mesh)
+        x = x + mlp(bp, layer_norm(bp["mlp_ln"], x), mesh)
     x = layer_norm(p["ln"], x)
     # the products of x's dtype are exact in float32 (preferred_element_type)
     return torch.matmul(x.float(), p["token_emb"].to(x.dtype).float().T)

@@ -14,11 +14,19 @@ Ranks are laid out as JAX lays out its device grid: rank = data_rank * tp
 initialised process group the mesh is 1x1 and every collective is the
 identity, so every code path stays mesh-aware without special cases.
 
-The two collectives the model needs live here, and nothing else in the
-port calls ``torch.distributed``: ``all_reduce`` over the model group (the
-row-parallel products) and ``all_gather`` over the data group (each data
-rank's decode results).  Both take CUDA tensors under NCCL and under gloo
-(which lets several ranks share one card).
+The collectives live here, and nothing else in the port calls
+``torch.distributed``: ``all_reduce`` over the model group (the
+row-parallel products), ``all_gather`` over the data group (each data
+rank's decode results) and ``data_all_reduce`` (the training step's
+gradients, loss and mask sums).  They take CUDA tensors under NCCL and
+under gloo (which lets several ranks share one card).
+
+Under autograd (the sharded train step) the model's two model-group
+crossings are Megatron's pair of functions: ``copy_to_model`` (identity
+forward, all-reduced gradient) at the input of each column-parallel
+product, and ``reduce_from_model`` (the all-reduce forward, identity
+backward) in each row-parallel product.  On a tensor that needs no
+gradient both are exactly the serving path's ops.
 """
 from __future__ import annotations
 
@@ -119,3 +127,51 @@ def all_gather(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(mesh.dp)]
     dist.all_gather(parts, x, group=mesh.data_group)
     return torch.cat(parts, dim=0)
+
+
+def data_all_reduce(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Sum of x over the data axis (in place; x itself when dp == 1)."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    dist.all_reduce(x, group=mesh.data_group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """x, whose gradient is summed over the model axis: each model rank's
+    heads or hidden units contribute part of it.  x itself without a
+    gradient or when tp == 1."""
+    if mesh is None or mesh.tp == 1 or not x.requires_grad:
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``all_reduce`` over the model axis; under autograd its gradient
+    passes through unchanged (every model rank holds the whole sum)."""
+    if mesh is None or mesh.tp == 1:
+        return x
+    if not x.requires_grad:
+        return all_reduce(x, mesh)
+    return _ReduceFromModel.apply(x, mesh)

@@ -80,7 +80,9 @@ def whisper_param_spec(cfg: WhisperConfig) -> dict:
     }
 
 
-def _shard(t: torch.Tensor, split: Split | None, mesh: Mesh) -> torch.Tensor:
+def shard_tensor(t: torch.Tensor, split: Split | None, mesh: Mesh) -> torch.Tensor:
+    """This model rank's slice of ``t`` under ``split`` (all of it when
+    None or tp == 1), contiguous, on the mesh's device."""
     if split is not None and mesh.tp > 1:
         size = t.shape[split.dim]
         if size % split.units:
@@ -115,6 +117,6 @@ def shard_params(params: Params, mesh: Mesh, cfg: WhisperConfig) -> ShardedParam
     def walk(p, s):
         if isinstance(p, dict):
             return {k: walk(v, s[k]) for k, v in p.items()}
-        return _shard(p, s, mesh)
+        return shard_tensor(p, s, mesh)
 
     return ShardedParams(walk(params, whisper_param_spec(cfg)), layout_of(mesh))

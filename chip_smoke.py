@@ -36,7 +36,16 @@ Diarization, last: kernel A on the segmentation net's
 against the CPU in float32 and against the JAX suite's quality gates at
 its bf16 default, fusion of the card's and the CPU's turns, then a 30 min
 4-speaker meeting through ``Diarizer.bundled()`` and through the configs'
-published widths, timed stage by stage.
+published widths, timed stage by stage.  Conversion (``convert``):
+whisper-small from seeded weights written as an openai ``.pt`` and an HF
+directory, through ``convert-whisper`` (every leaf bit-equal; the 4 min
+transcript from the converted ``.npz`` equal to the source params'), and a
+PyanNet + ResNet34 pack through ``convert-diarizer`` (the 30 min meeting's
+turns equal).  Training (``train``): ``finetune-whisper`` at whisper-small
+width in float32 (step 0 held to the CPU), ``train-segmentation``,
+``train-embedding`` and ``calibrate-alignment-heads --write``, each timed a
+step; ``--tp-only`` adds one sharded train step on dp1 x tp2 and dp2 x tp2
+held to one process.
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result line, when there is no card, when the port is not beside
@@ -53,6 +62,7 @@ import queue
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -912,9 +922,10 @@ def _tp_rank(rank, world, tp, port, backend, results, profile) -> None:
         raise
 
 
-def run_world(world: int, tp: int, timeout_s: float, profile: bool) -> tuple[list[dict], str]:
-    """Spawn ``world`` ranks of _tp_rank and collect their results.  A rank
-    that fails or exits early, or a world past ``timeout_s``, fails the
+def run_world(world: int, tp: int, timeout_s: float, profile: bool,
+              target=_tp_rank) -> tuple[list[dict], str]:
+    """Spawn ``world`` ranks of ``target`` and collect their results.  A
+    rank that fails or exits early, or a world past ``timeout_s``, fails the
     run; every process is stopped on the way out."""
     ctx = torch.multiprocessing.get_context("spawn")
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
@@ -922,7 +933,7 @@ def run_world(world: int, tp: int, timeout_s: float, profile: bool) -> tuple[lis
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     results = ctx.Queue()
-    procs = [ctx.Process(target=_tp_rank, args=(r, world, tp, port, backend, results, profile))
+    procs = [ctx.Process(target=target, args=(r, world, tp, port, backend, results, profile))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -931,17 +942,17 @@ def run_world(world: int, tp: int, timeout_s: float, profile: bool) -> tuple[lis
     try:
         while len(got) < world:
             if time.monotonic() > deadline:
-                fail(f"transcribe_tp world={world}: timed out after {timeout_s} s")
+                fail(f"{target.__name__} world={world}: timed out after {timeout_s} s")
             try:
                 rank, ok, value = results.get(timeout=5)
             except queue.Empty:
                 dead = {i: p.exitcode for i, p in enumerate(procs)
                         if p.exitcode not in (None, 0) and i not in got}
                 if dead:
-                    fail(f"transcribe_tp world={world}: ranks exited {dead}")
+                    fail(f"{target.__name__} world={world}: ranks exited {dead}")
                 continue
             if not ok:
-                fail(f"transcribe_tp world={world}: rank {rank} failed:\n{value}")
+                fail(f"{target.__name__} world={world}: rank {rank} failed:\n{value}")
             got[rank] = value
         for p in procs:
             p.join(timeout=60)
@@ -1849,6 +1860,574 @@ def phase_diarize(dev, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# convert and train: checkpoint conversion and the three trainers
+# ---------------------------------------------------------------------------
+
+CONVERT_MODEL = "small"
+CONVERT_HEADS = ((7, 3), (10, 5))  # two alignment heads carried by the HF directory
+TRAIN_WAVS = 8
+
+
+def perturbed_whisper_params(cfg, seed: int) -> dict:
+    """Seeded random float32 params on the CPU, every leaf moved by a little
+    noise so the biases and norm scales are off their 0/1 init and every
+    leaf's bits are tested."""
+    from audio_processor_tpu_torch.models.whisper import model
+    from audio_processor_tpu_torch.training.train_step import tree_leaves
+
+    g = torch.Generator().manual_seed(seed)
+    params = model.init_params(cfg, g)
+    for t in tree_leaves(params):
+        t.add_(torch.randn(t.shape, generator=g) * 0.02)
+    return params
+
+
+def whisper_state_dict(params, cfg, style: str) -> dict:
+    """The port's params under openai-whisper's names (style "openai") or
+    HuggingFace's ("hf"), in torch's layouts: the inverse of the converters,
+    written out here so the converters are held to an independent mapping."""
+    hf = style == "hf"
+    attn_names = ("q_proj", "k_proj", "v_proj", "out_proj") if hf else ("query", "key", "value", "out")
+    sd: dict = {}
+
+    def put(key, t):
+        sd[("model." if hf else "") + key] = t.contiguous()
+
+    def norm(key, p, i=None):
+        put(f"{key}.weight", p["scale"] if i is None else p["scale"][i])
+        put(f"{key}.bias", p["bias"] if i is None else p["bias"][i])
+
+    def lin(key, p, i):
+        put(f"{key}.weight", p["w"][i].T)
+        if "b" in p:
+            put(f"{key}.bias", p["b"][i])
+
+    for side, n in (("encoder", cfg.n_audio_layer), ("decoder", cfg.n_text_layer)):
+        blocks = params[side]["blocks"]
+        parts = [("attn_ln", "self_attn_layer_norm", "attn_ln"), ("attn", "self_attn", "attn"),
+                 ("mlp_ln", "final_layer_norm", "mlp_ln"), ("fc1", "fc1", "mlp.0"),
+                 ("fc2", "fc2", "mlp.2")]
+        if side == "decoder":
+            parts += [("cross_attn_ln", "encoder_attn_layer_norm", "cross_attn_ln"),
+                      ("cross_attn", "encoder_attn", "cross_attn")]
+        for i in range(n):
+            base = f"{side}.{'layers' if hf else 'blocks'}.{i}"
+            for ours, hf_name, oa_name in parts:
+                key, p = f"{base}.{hf_name if hf else oa_name}", blocks[ours]
+                if ours.endswith("_ln"):
+                    norm(key, p, i)
+                elif ours.startswith("fc"):
+                    lin(key, p, i)
+                else:
+                    for sub, name in zip(("q", "k", "v", "out"), attn_names):
+                        lin(f"{key}.{name}", p[sub], i)
+    enc, dec = params["encoder"], params["decoder"]
+    for conv in ("conv1", "conv2"):
+        put(f"encoder.{conv}.weight", enc[conv]["w"])
+        put(f"encoder.{conv}.bias", enc[conv]["b"])
+    if hf:
+        put("encoder.embed_positions.weight", enc["pos_emb"])
+        put("decoder.embed_tokens.weight", dec["token_emb"])
+        put("decoder.embed_positions.weight", dec["pos_emb"])
+        norm("encoder.layer_norm", enc["ln_post"])
+        norm("decoder.layer_norm", dec["ln"])
+    else:
+        put("encoder.positional_embedding", enc["pos_emb"])
+        put("decoder.token_embedding.weight", dec["token_emb"])
+        put("decoder.positional_embedding", dec["pos_emb"])
+        norm("encoder.ln_post", enc["ln_post"])
+        norm("decoder.ln", dec["ln"])
+    return sd
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A float32 ``.safetensors`` file: 8-byte little-endian header length,
+    the JSON header (dtype, shape, byte offsets), then the raw bytes."""
+    import struct
+
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        blob = t.detach().cpu().float().contiguous().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        offset += len(blob)
+        blobs.append(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
+
+
+def write_hf_directory(d: str, params, cfg) -> None:
+    """An HF Whisper checkpoint directory: config, generation config with
+    two alignment heads, ``model.safetensors``, a byte-level vocab."""
+    from audio_processor_tpu_torch.models.whisper.tokenizer import _bytes_to_unicode
+
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"num_mel_bins": cfg.n_mels, "max_source_positions": cfg.n_audio_ctx,
+                   "d_model": cfg.n_audio_state, "encoder_attention_heads": cfg.n_audio_head,
+                   "encoder_layers": cfg.n_audio_layer, "vocab_size": cfg.n_vocab,
+                   "max_target_positions": cfg.n_text_ctx,
+                   "decoder_attention_heads": cfg.n_text_head,
+                   "decoder_layers": cfg.n_text_layer}, f)
+    with open(os.path.join(d, "generation_config.json"), "w") as f:
+        json.dump({"alignment_heads": [list(h) for h in CONVERT_HEADS]}, f)
+    enc = _bytes_to_unicode()
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({enc[b]: b for b in range(256)}, f, ensure_ascii=False)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: byte-level\n")
+    write_safetensors(os.path.join(d, "model.safetensors"), whisper_state_dict(params, cfg, "hf"))
+
+
+def pyannet_state_dict(net) -> dict:
+    """The port's PyanNet under pyannote.audio's module names."""
+    sd = {"sincnet.wav_norm1d.weight": net.wav_norm["scale"],
+          "sincnet.wav_norm1d.bias": net.wav_norm["bias"],
+          "sincnet.conv1d.0.low_hz_": net.sinc["low_hz"][:, None],
+          "sincnet.conv1d.0.band_hz_": net.sinc["band_hz"][:, None]}
+    for i in range(3):
+        norm = getattr(net, f"norm{i}")
+        sd[f"sincnet.norm1d.{i}.weight"], sd[f"sincnet.norm1d.{i}.bias"] = norm["scale"], norm["bias"]
+    for i in (1, 2):
+        conv = getattr(net, f"conv{i}")
+        sd[f"sincnet.conv1d.{i}.weight"], sd[f"sincnet.conv1d.{i}.bias"] = conv.weight, conv.bias
+    sd.update({f"lstm.{k}": v for k, v in net.lstm.state_dict().items()})
+    for ours, theirs in (("linear1", "linear.0"), ("linear2", "linear.1"), ("classifier", "classifier")):
+        lin = getattr(net, ours)
+        sd[f"{theirs}.weight"], sd[f"{theirs}.bias"] = lin.weight, lin.bias
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def resnet_state_dict(net) -> dict:
+    """The port's ResNet under torchvision's names, the embedding linear as
+    WeSpeaker's ``seg_1``."""
+    sd = {}
+
+    def bn(key, p):
+        for ours, theirs in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                             ("var", "running_var")):
+            sd[f"{key}.{theirs}"] = p[ours]
+
+    sd["conv1.weight"] = net.stem_conv
+    bn("bn1", net.stem_bn)
+    for si, stage in enumerate(net.stages, start=1):
+        for bi, block in enumerate(stage):
+            base = f"layer{si}.{bi}"
+            sd[f"{base}.conv1.weight"], sd[f"{base}.conv2.weight"] = block.conv1, block.conv2
+            bn(f"{base}.bn1", block.bn1)
+            bn(f"{base}.bn2", block.bn2)
+            if hasattr(block, "down_conv"):
+                sd[f"{base}.downsample.0.weight"] = block.down_conv
+                bn(f"{base}.downsample.1", block.down_bn)
+    sd["seg_1.weight"], sd["seg_1.bias"] = net.fc["w"].T, net.fc["b"]
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def cli_run(argv: list[str]) -> str:
+    """One port CLI subcommand in this process; its standard output."""
+    import contextlib
+    import io
+
+    from audio_processor_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def leaves_equal(a, b) -> bool:
+    from audio_processor_tpu_torch.training.train_step import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def phase_convert(dev, counters, work: str) -> tuple[dict, str]:
+    """Checkpoint conversion at whisper-small's published widths from seeded
+    random params: an openai ``.pt`` and an HF directory (safetensors
+    written above) through ``convert-whisper``; every leaf bit-equal to the
+    source; the ``transcribe`` cell's 4 min from the converted ``.npz``,
+    tokens equal to a Transcriber built on the source params (kernels A
+    and B counted).  The diarizer: a PyanNet and a ResNet34 at the
+    published widths (seeded) mapped to pyannote/torchvision state dicts,
+    through ``convert-diarizer``; the 30 min meeting's turns from
+    ``Diarizer.from_npz`` equal those of a Diarizer on the source nets (soft
+    decode, onset 0: every (window, speaker) pair a crop; 4 speakers).  The
+    bundled nets mapped back and converted give their own leaves.
+    Returns (summary, the HF-converted .npz)."""
+    from audio_processor_tpu_torch.models.diarization import convert as dconvert
+    from audio_processor_tpu_torch.models.diarization import embedding as emb_lib
+    from audio_processor_tpu_torch.models.diarization import segmentation as seg_lib
+    from audio_processor_tpu_torch.models.diarization import segmentation_tpu as seg_tpu
+    from audio_processor_tpu_torch.models.whisper import convert
+    from audio_processor_tpu_torch.models.whisper.config import get_config
+    from audio_processor_tpu_torch.models.whisper.tokenizer import BPETokenizer
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    out: dict = {"phase": "convert", "model": f"{CONVERT_MODEL} (seeded random weights)"}
+    cfg = get_config(CONVERT_MODEL)
+    t0 = time.perf_counter()
+    src = perturbed_whisper_params(cfg, seed=11)
+    pt, hf_dir = os.path.join(work, "small.pt"), os.path.join(work, "small-hf")
+    dims = {k: getattr(cfg, k) for k in ("n_mels", "n_audio_ctx", "n_audio_state", "n_audio_head",
+                                         "n_audio_layer", "n_vocab", "n_text_ctx", "n_text_state",
+                                         "n_text_head", "n_text_layer")}
+    torch.save({"dims": dims, "model_state_dict": whisper_state_dict(src, cfg, "openai")}, pt)
+    write_hf_directory(hf_dir, src, cfg)
+    out["write_s"] = time.perf_counter() - t0
+    npz = {}
+    for tag, path in (("openai", pt), ("hf", hf_dir)):
+        npz[tag] = os.path.join(work, f"small-{tag}.npz")
+        t0 = time.perf_counter()
+        printed = cli_run(["convert-whisper", path, npz[tag]])
+        took = time.perf_counter() - t0
+        params, got = convert.load_params(npz[tag], "cpu")
+        if not leaves_equal(params, src):
+            fail(f"convert: convert-whisper from {tag}: a leaf differs from the source")
+        heads = CONVERT_HEADS if tag == "hf" else None
+        if got.alignment_heads != heads or (convert.load_tokenizer(npz[tag]) is None) == (tag == "hf"):
+            fail(f"convert: {tag}: heads {got.alignment_heads} / tokenizer sidecars wrong")
+        out[tag] = {"convert_s": took, "printed": printed.strip(), "leaves_bit_equal": True,
+                    "npz_mb": os.path.getsize(npz[tag]) / 1e6}
+        del params
+    # the transcribe cell from the converted checkpoint, against the source params
+    audio = speech_like(TP_AUDIO_S, 5)
+    tok = BPETokenizer.from_vocab_files(os.path.join(hf_dir, "vocab.json"),
+                                        os.path.join(hf_dir, "merges.txt"))
+    direct = Transcriber(params=src, cfg=dataclasses.replace(cfg, alignment_heads=CONVERT_HEADS),
+                         tokenizer=tok, device=dev, enable_fallback=False)
+    seen_direct = record_decodes(direct)
+    ref = direct.transcribe(audio)
+    del direct
+    tr = Transcriber.from_npz(npz["hf"], device=dev, enable_fallback=False)
+    seen = record_decodes(tr)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    got = tr.transcribe(audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters, (), "convert transcribe")
+    check_segments(got, TP_AUDIO_S, "convert")
+    tokens, ref_tokens = np.concatenate(seen), np.concatenate(seen_direct)
+    def spans(res):
+        return [(seg["start"], seg["end"], seg["text"]) for seg in res["segments"]]
+
+    if not (np.array_equal(tokens, ref_tokens) and spans(got) == spans(ref)):
+        fail("convert: the converted checkpoint's transcript differs from the source params'")
+    out["transcribe"] = {"audio_s": TP_AUDIO_S, "tokens_equal": True, "segments": len(got["segments"]),
+                         "decode_tokens": int(tokens.size), "wall_s": wall, "launches": launches}
+    del tr
+    torch.cuda.empty_cache()
+
+    # the diarizer: published-width nets -> pyannote/torchvision state dicts -> the CLI
+    g = torch.Generator().manual_seed(12)
+    seg_cfg, emb_cfg = seg_lib.SegmentationConfig(), emb_lib.EmbeddingConfig()
+    seg_net, emb_net = seg_lib.init_params(seg_cfg, g), emb_lib.init_params(emb_cfg, g)
+    with torch.no_grad():  # biases and norms off their 0/1 init, as above
+        for net in (seg_net, emb_net):
+            for p in net.parameters():
+                if p.ndim == 1:
+                    p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    seg_pt, emb_pt = os.path.join(work, "seg.ckpt"), os.path.join(work, "emb.pt")
+    torch.save({"state_dict": pyannet_state_dict(seg_net)}, seg_pt)
+    torch.save(resnet_state_dict(emb_net), emb_pt)
+    pack = os.path.join(work, "diarizer.npz")
+    t0 = time.perf_counter()
+    cli_run(["convert-diarizer", seg_pt, emb_pt, pack])
+    took = time.perf_counter() - t0
+    seg_tree, emb_tree = dconvert.load_diarizer_params(pack)
+    if not (leaves_equal(seg_lib.params_from_jax(seg_tree, seg_cfg), seg_net)
+            and leaves_equal(emb_lib.params_from_jax(emb_tree, emb_cfg), emb_net)):
+        fail("convert: convert-diarizer: a leaf differs from the source nets")
+    bundled = Diarizer.bundled(device="cpu")
+    b_tree, _ = dconvert.from_resnet_state_dict(resnet_state_dict(bundled.emb_params),
+                                                bundled.emb_cfg)
+    bundled_equal = (leaves_equal(emb_lib.params_from_jax(b_tree, bundled.emb_cfg), bundled.emb_params)
+                     and leaves_equal(seg_tpu.params_from_jax(seg_tpu.params_to_jax(
+                         bundled.seg_params), bundled.seg_cfg), bundled.seg_params))
+    if not bundled_equal:
+        fail("convert: the bundled nets mapped back and converted differ from themselves")
+    rng = np.random.default_rng(4)
+    f0s = (float(rng.uniform(95, 120)), float(rng.uniform(150, 185)),
+           float(rng.uniform(220, 270)), float(rng.uniform(320, 378)))
+    meeting, _ = make_meeting(rng, f0s, DIARIZE_MEETING_S)
+    # random nets: the soft decode at onset 0 makes every (window, speaker)
+    # pair a crop, and 4 clusters are asked for (random embeddings all fall
+    # in one), so the turns rest on every embedding and the clustering
+    knobs = dict(hard_decode=False, onset=0.0, device=dev)
+    direct = Diarizer(seg_params=seg_net, seg_cfg=seg_cfg, emb_params=emb_net, emb_cfg=emb_cfg,
+                      **knobs)
+    ref_turns = direct.diarize(meeting, num_speakers=4)
+    del direct
+    d = Diarizer.from_npz(pack, **knobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    turns = d.diarize(meeting, num_speakers=4)
+    torch.cuda.synchronize()
+    if not turns or turns != ref_turns:
+        fail(f"convert: the converted diarizer's turns ({len(turns)}) differ from the source "
+             f"nets' ({len(ref_turns)})")
+    out["diarizer"] = {"convert_s": took, "leaves_bit_equal": True,
+                       "bundled_mapped_back_bit_equal": True, "audio_s": DIARIZE_MEETING_S,
+                       "turns": len(turns), "speakers": len({t["speaker"] for t in turns}),
+                       "turns_equal": True, "diarize_s": time.perf_counter() - t0}
+    del d
+    torch.cuda.empty_cache()
+    return out, npz["hf"]
+
+
+def whisper_train_flops(cfg, b: int, t: int) -> float:
+    """Operations of one training step (forward and backward, 3x the
+    forward's products) at batch b and t tokens: the conv stem, every
+    linear, both attentions, the cross K/V over the encoder states and the
+    logits."""
+    d, ta, tm = cfg.n_audio_state, cfg.n_audio_ctx, 2 * cfg.n_audio_ctx
+    enc = (2 * cfg.n_mels * 3 * d * tm + 2 * d * 3 * d * ta
+           + cfg.n_audio_layer * (2 * 12 * d * d * ta + 4 * ta * ta * d))
+    e = cfg.n_text_state
+    dec = (cfg.n_text_layer * (2 * 14 * e * e * t + 2 * 2 * e * e * ta + 4 * t * t * e + 4 * t * ta * e)
+           + 2 * t * e * cfg.n_vocab)
+    return 3.0 * b * (enc + dec)
+
+
+class StepTimer:
+    """Wraps ``module.<name>`` (a train step returning (state, loss)) for
+    the length of a ``with``: each call is timed between two synchronises
+    and its loss kept; ``first(*args)`` runs once, before the first step.
+    ``profile()`` then runs one more step, on the last step's arguments,
+    under the profiler."""
+
+    def __init__(self, module, name: str, first=None):
+        self.module, self.name, self.first = module, name, first
+        self.ms: list[float] = []
+        self.losses: list[float] = []
+
+    def __enter__(self):
+        step = self.fn = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            if self.first is not None and not self.ms:
+                self.first(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            self.losses.append(float(loss))
+            self.last = (state, *args[1:]), kw
+            return state, loss
+
+        setattr(self.module, self.name, timed)
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def summary(self) -> dict:
+        ms = sorted(self.ms)
+        return {"steps": len(ms), "ms_step_median": float(np.median(ms)), "ms_step_range": [ms[0], ms[-1]],
+                "ms_steps": self.ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loss_first": self.losses[0], "loss_last": self.losses[-1], "losses": self.losses}
+
+    def profile(self) -> dict | str:
+        """Kernel time by kernel over one more step, and its share of the
+        unprofiled median step (the device's busy share)."""
+        args, kw = self.last
+        del self.last
+        return profile_decode(lambda: self.fn(*args, **kw), float(np.median(self.ms)))
+
+
+def phase_train(dev, npz: str, work: str, card: str) -> tuple[dict, dict]:
+    """The three trainers through their CLI subcommands, on the card:
+    ``finetune-whisper`` from the converted whisper-small checkpoint
+    (float32, TF32 off, batch 8, 128 tokens, 5 steps on 8 seeded 30 s
+    WAVs; step 0's loss held to the CPU's on its first row; --out, then a
+    transcribe from the saved .npz), ``train-segmentation`` (10 s, d=192)
+    and ``train-embedding`` (ResNet34, 3 s crops) at their default batches
+    for 5 steps, and ``calibrate-alignment-heads --write`` on a copy of the
+    converted checkpoint with a 30 s recording.  Each trainer's ms a step
+    (median, range), peak GB and loss from first to last; kernel A's
+    launches on the finetune and segmentation paths, kernel B's on the
+    calibration; each trainer's kernels over one more step under the
+    profiler.  Returns (summary, launches by path)."""
+    import shutil
+
+    from audio_processor_tpu_torch.models.diarization import segmentation_tpu as seg_tpu
+    from audio_processor_tpu_torch.models.whisper import convert, model
+    from audio_processor_tpu_torch.ops.kernels.decode_attention import cross_attention_int4_stacked
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+    from audio_processor_tpu_torch.training import diarization_trainer as dt
+    from audio_processor_tpu_torch.training import embedding_trainer as et
+    from audio_processor_tpu_torch.training import train_step as ts
+    from audio_processor_tpu_torch.utils import wavio
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("train: TF32 is on")
+    out: dict = {"phase": "train", "card": card}
+    launches: dict = {}
+    wavs, lines = [], []
+    for i in range(TRAIN_WAVS):
+        path = os.path.join(work, f"train{i}.wav")
+        wavio.write_wav(path, speech_like(30.0, 100 + i), 16_000)
+        wavs.append(path)
+        lines.append(json.dumps({"audio": path, "text": f"the meeting notes number {i} say hello"}))
+    manifest = os.path.join(work, "manifest.jsonl")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    # finetune-whisper; step 0's first row on the card and on the CPU, f32
+    step0: dict = {}
+
+    def cpu_check(state, cfg, batch, lr=1e-4, mesh=None):
+        row = ts.Batch(*(x[:1] for x in batch))
+        with torch.no_grad():
+            card_loss = float(ts.loss_fn(state.params, cfg, row))
+            t0 = time.perf_counter()
+            cpu_loss = float(ts.loss_fn(model.map_params(lambda t: t.cpu(), state.params), cfg,
+                                        ts.Batch(*(x.cpu() for x in row))))
+        step0.update(card=card_loss, cpu=cpu_loss, cpu_s=time.perf_counter() - t0,
+                     rel_err=abs(card_loss - cpu_loss) / abs(cpu_loss))
+
+    tuned = os.path.join(work, "tuned.npz")
+    zero_counts([log_mel])
+    with StepTimer(ts, "train_step", first=cpu_check) as timer:
+        t0 = time.perf_counter()
+        printed = cli_run(["finetune-whisper", manifest, "--model-path", npz, "--steps", "5",
+                           "--batch", "8", "--max-tokens", "128", "--out", tuned])
+        wall = time.perf_counter() - t0
+    launches["finetune"] = read_counts([log_mel], (), "train finetune")
+    if step0["rel_err"] > 1e-5 or not all(np.isfinite(timer.losses)):
+        fail(f"train: finetune step 0's loss on the card vs the CPU: {step0}; losses {timer.losses}")
+    cfg = convert.load_params(npz, "cpu")[1]
+    flops = whisper_train_flops(cfg, 8, 128)
+    fin = timer.summary()
+    fin["profile"] = timer.profile()
+    fin.update(wall_s=wall, printed=printed.strip().splitlines(), step0_row0=step0,
+               launches=launches["finetune"], flops_step=flops,
+               bound_ms_fp32=1e3 * flops / PEAK_FP32_FLOPS)
+    fin["bound_share"] = fin["bound_ms_fp32"] / fin["ms_step_median"]
+    tr = Transcriber.from_npz(tuned, device=dev, enable_fallback=False)
+    res = tr.transcribe(speech_like(30.0, 100))
+    check_segments(res, 30.0, "train finetune transcribe")
+    fin["transcribe_from_saved"] = {"segments": len(res["segments"]), "rtf_x": res["rtf_x"]}
+    out["finetune_whisper"] = fin
+    del tr
+    torch.cuda.empty_cache()
+
+    # train-segmentation at the published widths; step 0 on the CPU as well
+    seg0: dict = {}
+
+    def seg_cpu(state, cfg, audio, targets, member, lut, lr=3e-4):
+        net = seg_tpu.params_from_jax(seg_tpu.params_to_jax(state.params), cfg, "cpu")
+        with torch.no_grad():
+            seg0["cpu"] = float(dt.permutation_invariant_loss(
+                net(audio.cpu()), targets.cpu(), member.cpu(), lut.cpu()))
+
+    zero_counts([log_mel])
+    with StepTimer(dt, "train_step", first=seg_cpu) as timer:
+        printed = cli_run(["train-segmentation", "--steps", "5"])
+    launches["train_segmentation"] = read_counts([log_mel], (), "train segmentation")
+    seg = timer.summary()
+    seg["profile"] = timer.profile()
+    seg0["card"] = seg["loss_first"]
+    seg0["rel_err"] = abs(seg0["card"] - seg0["cpu"]) / abs(seg0["cpu"])
+    if seg0["rel_err"] > 1e-5:
+        fail(f"train: segmentation step 0's loss on the card vs the CPU: {seg0}")
+    seg.update(config="10 s, d=192, 4 heads, 4 layers, batch 8", step0=seg0,
+               launches=launches["train_segmentation"])
+    out["train_segmentation"] = seg
+    torch.cuda.empty_cache()
+
+    with StepTimer(et, "train_step") as timer:
+        printed = cli_run(["train-embedding", "--steps", "5"])
+    emb = timer.summary()
+    emb["profile"] = timer.profile()
+    if not all(np.isfinite(emb["losses"])):
+        fail(f"train: embedding losses {emb['losses']}")
+    emb.update(config="ResNet34 (base 32, blocks 3/4/6/3), 3 s crops, batch 16, bf16 convs")
+    out["train_embedding"] = emb
+    torch.cuda.empty_cache()
+
+    # calibrate-alignment-heads --write on a copy of the converted checkpoint
+    cal = os.path.join(work, "calibrate.npz")
+    shutil.copyfile(npz, cal)
+    zero_counts([cross_attention_int4_stacked])
+    t0 = time.perf_counter()
+    printed = cli_run(["calibrate-alignment-heads", cal, wavs[0], "--write"])
+    wall = time.perf_counter() - t0
+    launches["calibrate"] = read_counts([cross_attention_int4_stacked], (), "train calibrate")
+    heads = tuple(tuple(h) for h in json.loads(printed)["alignment_heads"])
+    got = convert.load_params(cal, "cpu")[1]
+    if not heads or got.alignment_heads != heads or convert.load_tokenizer(cal) is None:
+        fail(f"train: calibrate-alignment-heads wrote {got.alignment_heads}, printed {heads}")
+    out["calibrate_alignment_heads"] = {"heads": heads, "wall_s": wall, "vocab_kept": True,
+                                        "launches": launches["calibrate"]}
+    return out, launches
+
+
+def _train_rank(rank, world, tp, port, backend, results, profile) -> None:
+    """One rank of a train_tp world: the dry run's dp x tp step (the port's
+    ``train_step.dryrun_multichip``), and the same step in this process
+    alone on the whole batch, compared on this rank's slices."""
+    try:
+        import torch.distributed as dist
+
+        from audio_processor_tpu_torch.models.whisper import model
+        from audio_processor_tpu_torch.parallel import mesh as mesh_lib
+        from audio_processor_tpu_torch.parallel import multihost
+        from audio_processor_tpu_torch.training import train_step as ts
+
+        multihost.initialize(f"127.0.0.1:{port}", world, rank, backend=backend)
+        loss, state = ts.dryrun_multichip(world, tp)
+        mesh = mesh_lib.make_mesh(tp)
+        cfg = ts.DRYRUN_CONFIG
+        params = model.map_params(lambda t: t.to(mesh.device),
+                                  ts.init_train_state(cfg, torch.Generator().manual_seed(0)).params)
+        ref = ts.TrainState(params, ts.make_optimizer().init(ts.tree_leaves(params)), 0)
+        ref, ref_loss = ts.train_step(ref, cfg, ts.local_batch(ts.dryrun_batch(mesh.dp), None, mesh.device))
+        ref = ts.shard_train_state(ref, mesh, cfg)
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            ts.tree_leaves(state.params) + state.opt_state.mu + state.opt_state.nu,
+            ts.tree_leaves(ref.params) + ref.opt_state.mu + ref.opt_state.nu))
+        results.put((rank, True, {"rank": rank, "device": str(mesh.device), "loss": loss,
+                                  "one_process_loss": float(ref_loss), "max_param_diff": diff}))
+        dist.destroy_process_group()
+    except BaseException:  # reported to the parent, which fails the run
+        results.put((rank, False, traceback.format_exc()[-3000:]))
+        raise
+
+
+def phase_train_tp() -> dict:
+    """One sharded train step at the dry run's tiny config (2+2 layers,
+    d=64, vocab 512) on dp1 x tp2 and dp2 x tp2, one process a rank: the
+    loss equals one process's on the whole batch within 1e-5, and every
+    rank's params and moments its slices of that process's within 1e-5."""
+    out: dict = {"phase": "train_tp", "config": "dryrun: 2+2 layers, d=64, 4 heads, vocab 512"}
+    for world, tp in ((2, 2), (4, 2)):
+        t0 = time.perf_counter()
+        ranks, backend = run_world(world, tp, timeout_s=300.0, profile=False, target=_train_rank)
+        name = f"dp{world // tp}xtp{tp}"
+        for r in ranks:
+            if not (abs(r["loss"] - r["one_process_loss"]) <= 1e-5 * abs(r["one_process_loss"])
+                    and r["max_param_diff"] <= 1e-5 and r["loss"] == ranks[0]["loss"]):
+                fail(f"train_tp {name} rank {r['rank']}: {r}")
+        out[name] = {"backend": backend, "seconds": time.perf_counter() - t0, "ranks": ranks}
+    return out
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tp-only", action="store_true",
@@ -1906,6 +2485,7 @@ def main(argv: list[str] | None = None) -> None:
         summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
         emit(summary)
         emit(phase_transcribe_tp(dev, tr.tokens)[0])
+        emit(phase_train_tp())
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1958,6 +2538,17 @@ def main(argv: list[str] | None = None) -> None:
     for name, n in serve_launches.items():
         kernels[name]["launches_serve"] = n
     emit(phase_diarize(dev, kernels))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        convert, npz = phase_convert(dev, [log_mel, cross_attention_int4_stacked], work)
+        emit(convert)
+        train, train_launches = phase_train(dev, npz, work, card)
+        emit(train)
+    for name, n in convert["transcribe"]["launches"].items():
+        kernels["log_mel" if name == "log_mel" else "cross_attn_int4"]["launches_convert"] = n
+    kernels["log_mel"]["launches_finetune"] = train_launches["finetune"]["log_mel"]
+    kernels["log_mel"]["launches_train_segmentation"] = train_launches["train_segmentation"]["log_mel"]
+    kernels["cross_attn_int4"]["launches_calibrate"] = (
+        train_launches["calibrate"]["cross_attention_int4_stacked"])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": list(kernels.values())})

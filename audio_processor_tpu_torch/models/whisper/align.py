@@ -13,7 +13,13 @@ into words.
 
 The teacher-forced pass runs where the encoder states are (on the card in
 serving), with plain matmuls, as the JAX pass runs outside any Pallas
-kernel.  The JAX pass pads the token width and the batch to powers of two
+kernel.  Under a (data, model) mesh it runs on the rank's slices of the
+decoder (its heads, the row-parallel products summed over the model
+group, as ``decode`` runs them) and gathers each weighted layer's
+cross-attention over the model group before pooling, so that the pooled
+map sums the heads in the one process's order (the DTW is exact on its
+values); ``calibrate_alignment_heads`` and ``all_head_attention_maps``
+stay single-process.  The JAX pass pads the token width and the batch to powers of two
 to spare XLA recompiles; the port runs the real rows at their own width
 (the rows past a row's terminator are causal-masked away, and padded batch
 rows are independent), so the words are those of the padded pass.
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ...ops.kernels.dtw import dtw_starts
+from ...parallel import mesh as mesh_lib
 from .config import WhisperConfig
 from .decode import SpecialTokens
 from .model import (
@@ -34,8 +41,10 @@ from .model import (
     layer,
     layer_norm,
     linear,
+    local_heads,
     merge_heads,
     mlp,
+    row_parallel_linear,
     self_attention,
     split_heads,
 )
@@ -138,21 +147,29 @@ def _embed(params: Params, tokens: torch.Tensor, audio_states: torch.Tensor):
     return x, causal_mask(t, tokens.device), audio_states.float()
 
 
-def _decoder_block(bp, cfg: WhisperConfig, x, audio_states, causal):
+def _decoder_block(bp, cfg: WhisperConfig, x, audio_states, causal, mesh=None):
     """One teacher-forced decoder block -> (x_next, cross-attention
     probabilities (B, H, T, Ta)); the one definition the pooled, per-head
-    and all-heads passes run."""
-    x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), cfg.n_text_head, causal)
+    and all-heads passes run.  mesh: ``bp`` holds this model rank's slices,
+    and the probabilities are its heads (``local_heads``)."""
+    n_head = local_heads(cfg.n_text_head, mesh)
+    x = x + self_attention(bp["attn"], layer_norm(bp["attn_ln"], x), n_head, causal, mesh=mesh)
     xa = layer_norm(bp["cross_attn_ln"], x)
-    qx = split_heads(linear(bp["cross_attn"]["q"], xa), cfg.n_text_head).transpose(1, 2)
-    kx = split_heads(linear(bp["cross_attn"]["k"], audio_states), cfg.n_text_head).transpose(1, 2)
-    vx = split_heads(linear(bp["cross_attn"]["v"], audio_states), cfg.n_text_head).transpose(1, 2)
+    qx = split_heads(linear(bp["cross_attn"]["q"], xa), n_head).transpose(1, 2)
+    kx = split_heads(linear(bp["cross_attn"]["k"], audio_states), n_head).transpose(1, 2)
+    vx = split_heads(linear(bp["cross_attn"]["v"], audio_states), n_head).transpose(1, 2)
     scores = torch.matmul(qx, kx.transpose(-1, -2)) / math.sqrt(qx.shape[-1])
     probs = torch.softmax(scores, dim=-1)  # (B, H, T, Ta)
     ox = torch.matmul(probs, vx).transpose(1, 2)
-    x = x + linear(bp["cross_attn"]["out"], merge_heads(ox))
-    x = x + mlp(bp, layer_norm(bp["mlp_ln"], x))
+    x = x + row_parallel_linear(bp["cross_attn"]["out"], merge_heads(ox), mesh)
+    x = x + mlp(bp, layer_norm(bp["mlp_ln"], x), mesh)
     return x, probs
+
+
+def _all_heads(probs: torch.Tensor, cfg: WhisperConfig, mesh) -> torch.Tensor:
+    """A layer's cross-attention of every head (B, H, T, Ta), in head
+    order, from this model rank's heads."""
+    return mesh_lib.model_all_gather(probs, mesh, dim=1, units=cfg.n_text_head)
 
 
 def _head_weights(cfg: WhisperConfig) -> np.ndarray:
@@ -167,30 +184,39 @@ def _head_weights(cfg: WhisperConfig) -> np.ndarray:
     return w / max(w.sum(), 1.0)
 
 
-def _teacher_forced_scan(params: Params, cfg: WhisperConfig, tokens, audio_states):
-    """(final hidden states (B, T, d), pooled cross-attention (B, T, Ta))."""
+def _teacher_forced_scan(params: Params, cfg: WhisperConfig, tokens, audio_states, mesh=None):
+    """(final hidden states (B, T, d), pooled cross-attention (B, T, Ta)).
+    A layer whose heads all weigh 0 adds nothing to the map, so only the
+    weighted layers' maps are gathered over the model group (an exact 0
+    added to the sum would leave it as it is)."""
     x, causal, audio = _embed(params, tokens, audio_states)
-    head_w = torch.from_numpy(_head_weights(cfg)).to(x.device)
+    weights = _head_weights(cfg)
+    head_w = torch.from_numpy(weights).to(x.device)
     acc = torch.zeros((tokens.shape[0], tokens.shape[1], audio.shape[1]), device=x.device)
     for l in range(cfg.n_text_layer):
-        x, probs = _decoder_block(layer(params["decoder"]["blocks"], l), cfg, x, audio, causal)
-        acc = acc + torch.einsum("h,bhqk->bqk", head_w[l], probs)
+        x, probs = _decoder_block(layer(params["decoder"]["blocks"], l), cfg, x, audio, causal,
+                                  mesh)
+        if weights[l].any():
+            acc = acc + torch.einsum("h,bhqk->bqk", head_w[l], _all_heads(probs, cfg, mesh))
     return x, acc
 
 
-def cross_attention_map(params: Params, cfg: WhisperConfig, tokens, audio_states) -> torch.Tensor:
+def cross_attention_map(params: Params, cfg: WhisperConfig, tokens, audio_states,
+                        mesh=None) -> torch.Tensor:
     """Teacher-forced pass -> the pooled cross-attention (B, T, Ta)."""
-    return _teacher_forced_scan(params, cfg, tokens, audio_states)[1]
+    return _teacher_forced_scan(params, cfg, tokens, audio_states, mesh)[1]
 
 
 def cross_attention_map_and_probs(
     params: Params, cfg: WhisperConfig, tokens, audio_states, vocab_cap: int | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``cross_attention_map`` plus the per-token probabilities (B, T):
     probs[:, i] = P(tokens[i] | tokens[:i], audio), 1.0 at position 0;
     ``vocab_cap`` normalises over the first vocab_cap logits (openai's
-    ``logits[..., :eot]``)."""
-    x, acc = _teacher_forced_scan(params, cfg, tokens, audio_states)
+    ``logits[..., :eot]``).  The probabilities read the replicated
+    ``token_emb`` after the final layer norm: nothing is gathered."""
+    x, acc = _teacher_forced_scan(params, cfg, tokens, audio_states, mesh)
     return acc, _token_probs_from_hidden(params["decoder"], x, tokens, vocab_cap)
 
 
@@ -215,7 +241,7 @@ def _token_probs_from_hidden(p, x, tokens, vocab_cap, max_elems: int = 1 << 26) 
 
 def alignment_head_maps(
     params: Params, cfg: WhisperConfig, tokens, audio_states,
-    vocab_cap: int | None = None, want_probs: bool = False,
+    vocab_cap: int | None = None, want_probs: bool = False, mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Teacher-forced pass -> each alignment head's cross-attention map
     (K, B, T, Ta) in ``cfg.alignment_heads`` order, plus the per-token
@@ -227,10 +253,13 @@ def alignment_head_maps(
     x, causal, audio = _embed(params, tokens, audio_states)
     maps: list[torch.Tensor | None] = [None] * len(cfg.alignment_heads)
     for l in range(cfg.n_text_layer):
-        x, probs = _decoder_block(layer(params["decoder"]["blocks"], l), cfg, x, audio, causal)
-        for slot, (hl, h) in enumerate(cfg.alignment_heads):
-            if hl == l:
-                maps[slot] = probs[:, h]
+        x, probs = _decoder_block(layer(params["decoder"]["blocks"], l), cfg, x, audio, causal,
+                                  mesh)
+        slots = [(slot, h) for slot, (hl, h) in enumerate(cfg.alignment_heads) if hl == l]
+        if slots:
+            probs = _all_heads(probs, cfg, mesh)
+        for slot, h in slots:
+            maps[slot] = probs[:, h]
     out = torch.stack(maps)
     if not want_probs:
         return out, None
@@ -375,21 +404,24 @@ def _teacher_forced_rows(token_rows: np.ndarray, st: SpecialTokens, sot_sequence
 
 def alignment_maps(
     params: Params, cfg: WhisperConfig, audio_states: torch.Tensor, forced: np.ndarray,
-    vocab_cap: int, with_probabilities: bool,
+    vocab_cap: int, with_probabilities: bool, mesh=None,
 ) -> tuple[np.ndarray, np.ndarray | None]:
     """The teacher-forced pass over ``forced`` rows where the states are,
     read back to the host: per-head maps (K, B, T, Ta) with
     ``cfg.alignment_heads``, else the pooled map (B, T, Ta); and the token
-    probabilities (B, T) with ``with_probabilities``."""
+    probabilities (B, T) with ``with_probabilities``.  mesh: ``params`` are
+    this model rank's slices; every model rank returns the whole maps."""
     tok = torch.from_numpy(forced).to(audio_states.device)
     if cfg.alignment_heads:
         maps, probs = alignment_head_maps(
             params, cfg, tok, audio_states, vocab_cap=vocab_cap, want_probs=with_probabilities,
+            mesh=mesh,
         )
     elif with_probabilities:
-        maps, probs = cross_attention_map_and_probs(params, cfg, tok, audio_states, vocab_cap)
+        maps, probs = cross_attention_map_and_probs(params, cfg, tok, audio_states, vocab_cap,
+                                                    mesh)
     else:
-        maps, probs = cross_attention_map(params, cfg, tok, audio_states), None
+        maps, probs = cross_attention_map(params, cfg, tok, audio_states, mesh), None
     return maps.cpu().numpy(), None if probs is None else probs.cpu().numpy()
 
 
@@ -407,6 +439,7 @@ def word_timestamps(
     append_punctuations: str = APPEND_PUNCTUATIONS,
     sot_sequence: tuple[int, ...] | None = None,
     content_frames: np.ndarray | None = None,
+    mesh=None,
 ) -> list[list[dict]]:
     """Per window: [{"word", "start", "end"[, "probability"]}] on the global
     timeline, openai's find_alignment recipe as the JAX package's
@@ -419,12 +452,15 @@ def word_timestamps(
     codepoint a word for spaceless ``language``s), and punctuation merges
     into its neighbour.  ``probability`` is the mean token probability over
     the text vocabulary (openai's ``logits[..., :eot]``), which the
-    hallucination filter reads."""
+    hallucination filter reads.  mesh: ``params`` are this model rank's
+    slices (the rows are this data rank's: nothing crosses the data group
+    here)."""
     b, t = token_rows.shape
     if t == 0:
         return [[] for _ in range(b)]
     prefix, texts, forced = _teacher_forced_rows(token_rows, st, sot_sequence)
-    attn, tok_probs = alignment_maps(params, cfg, audio_states, forced, st.eot, with_probabilities)
+    attn, tok_probs = alignment_maps(params, cfg, audio_states, forced, st.eot, with_probabilities,
+                                     mesh)
     lo = len(prefix)
     cost, rows, frames = alignment_costs(
         attn, texts, lo, attn.shape[-1], content_frames, bool(cfg.alignment_heads),

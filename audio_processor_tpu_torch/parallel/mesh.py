@@ -16,10 +16,17 @@ identity, so every code path stays mesh-aware without special cases.
 
 The collectives live here, and nothing else in the port calls
 ``torch.distributed``: ``all_reduce`` over the model group (the
-row-parallel products), ``all_gather`` over the data group (each data
-rank's decode results) and ``data_all_reduce`` (the training step's
-gradients, loss and mask sums).  They take CUDA tensors under NCCL and
-under gloo (which lets several ranks share one card).
+row-parallel products), ``model_all_gather`` over it (each rank's heads of
+the alignment pass's cross-attention, in head order), ``all_gather`` over
+the data group (each data rank's decode results and diarizer rows),
+``all_gather_object`` over it (each data rank's word lists),
+``data_all_reduce`` (the training step's gradients, loss and mask sums),
+and over the world, on the mesh controller's own gloo group
+(``control_group``, ``parallel/controller.py``): ``broadcast`` /
+``broadcast_object`` from rank 0 (its calls) and ``world_gather_object``
+(how each rank's replay of a call ended).  The mesh's collectives take
+CUDA tensors under NCCL and under gloo (which lets several ranks share one
+card).
 
 Under autograd (the sharded train step) the model's two model-group
 crossings are Megatron's pair of functions: ``copy_to_model`` (identity
@@ -30,6 +37,7 @@ gradient both are exactly the serving path's ops.
 """
 from __future__ import annotations
 
+import datetime
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -127,6 +135,74 @@ def all_gather(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(mesh.dp)]
     dist.all_gather(parts, x, group=mesh.data_group)
     return torch.cat(parts, dim=0)
+
+
+def model_all_gather(x: torch.Tensor, mesh: Mesh | None, dim: int, units: int) -> torch.Tensor:
+    """x of every model rank, concatenated along ``dim`` in model-rank order
+    (x itself when tp == 1): each rank holds its run of ``units`` blocks
+    (``split_bounds``), so the result holds all of them in order, e.g. every
+    head of a layer.  Runs of unequal length are padded for the gather and
+    cut back."""
+    if mesh is None or mesh.tp == 1:
+        return x
+    sizes = [(r + 1) * units // mesh.tp - r * units // mesh.tp for r in range(mesh.tp)]
+    block = x.shape[dim] // sizes[mesh.model_rank]
+    pad = max(sizes) * block - x.shape[dim]
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.tp)]
+    dist.all_gather(parts, x, group=mesh.model_group)
+    return torch.cat([p.narrow(dim, 0, n * block) for p, n in zip(parts, sizes)], dim=dim)
+
+
+def all_gather_object(obj: Any, mesh: Mesh | None) -> list:
+    """``obj`` (picklable) of every data rank, in data-rank order ([obj]
+    when dp == 1)."""
+    if mesh is None or mesh.dp == 1:
+        return [obj]
+    out: list = [None] * mesh.dp
+    dist.all_gather_object(out, obj, group=mesh.data_group)
+    return out
+
+
+def control_group(timeout_s: float):
+    """A gloo group over the whole world whose collectives wait up to
+    ``timeout_s`` (None without a process group).  Every rank must call it,
+    in the same order as the mesh's groups."""
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return None
+    return dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s x on every rank of ``group`` (in place; x itself when
+    group is None).  Every rank passes a tensor of that shape."""
+    if group is not None:
+        dist.broadcast(x, src, group=group)
+    return x
+
+
+def broadcast_object(obj: Any, group, src: int = 0) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank of ``group`` (obj
+    itself when group is None); the other ranks pass anything."""
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src, group=group)
+    return box[0]
+
+
+def world_gather_object(obj: Any, group) -> list:
+    """``obj`` (picklable) of every rank of ``group``, in rank order ([obj]
+    when group is None)."""
+    if group is None:
+        return [obj]
+    out: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def data_all_reduce(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:

@@ -25,9 +25,13 @@ Env (APTPU_* all or none):
     APTPU_PROCESS_ID      this process's rank
     LOCAL_RANK            this process's card on its host (torchrun sets it)
     LOCAL_WORLD_SIZE      processes on this host (torchrun sets it)
+    APTPU_DIST_TIMEOUT_S  how long a collective waits for the other ranks
+                          before it fails (default 600): a rank that died
+                          ends the world instead of hanging it
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 
@@ -58,7 +62,8 @@ def initialize(
     card, unless ``backend`` names one (gloo lets several ranks share a
     card, which NCCL refuses).  On the card this rank's card is
     ``LOCAL_RANK``, else the rank modulo the cards (``set_device``), so a
-    bare "cuda" names it from then on.
+    bare "cuda" names it from then on.  A collective fails after
+    ``APTPU_DIST_TIMEOUT_S`` seconds.
     """
     if dist.is_initialized():
         return dist.get_world_size() > 1
@@ -101,6 +106,7 @@ def initialize(
     dist.init_process_group(
         backend or ("nccl" if on_card else "gloo"), init_method=init_method,
         world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=float(os.environ.get("APTPU_DIST_TIMEOUT_S", "600"))),
     )
     logger.info("torch.distributed up: rank %d/%d (%s)", process_id, num_processes,
                 dist.get_backend())

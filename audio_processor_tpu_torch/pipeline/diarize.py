@@ -18,6 +18,13 @@ Output turns are {"start", "end", "speaker": "SPEAKER_XX"}.  The host
 steps (windowing, crop gather, clustering, stitch, binarise) are the JAX
 package's numpy code, copied.  ``device=None`` runs the nets on the card
 and raises without one; pass ``device="cpu"`` for the plain PyTorch path.
+
+With ``mesh`` (a ``parallel.mesh.Mesh``; every rank builds the same
+Diarizer) each slab is rounded up to the data axis, a data rank runs the
+nets on its rows, and the rows are all-gathered before they reach the
+host; the model ranks of a data group compute the same rows (as JAX's
+``data_sharding`` replicates over the model axis), and every rank returns
+the same turns.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from ..models.diarization import embedding as emb_lib
 from ..models.diarization import segmentation as seg_lib
 from ..models.diarization import segmentation_tpu as seg_tpu
 from ..ops import frontend
+from ..parallel import mesh as mesh_lib
 from ..runtime.device import resolve_device
 from . import ingest
 from .transcribe import _bucket as _bucket_pow2
@@ -84,7 +92,8 @@ class Diarizer:
     min_cluster_size: int = 0
     min_cluster_frac: float = 0.0
     max_batch: int = 128
-    # data-parallel serving mesh: not ported yet (must stay None)
+    # parallel.mesh.Mesh: slabs split over its data axis; the device is
+    # the mesh's
     mesh: Any = None
     seg_fn: Any = None  # segment_windows impl; default the PyanNet's
     # pyannote-3.1 argmax powerset decode (to_multilabel) instead of the
@@ -98,14 +107,14 @@ class Diarizer:
     device: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "Diarizer(mesh=...): data-parallel diarization is not ported to the "
-                "PyTorch package yet; a later slice of the port brings it"
-            )
         if self.seg_fn is None:
             self.seg_fn = seg_lib.segment_windows
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+        elif self.device is None or resolve_device(self.device) == self.mesh.device:
+            self.device = self.mesh.device
+        else:
+            raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
         for net in (self.seg_params, self.emb_params):
             if isinstance(net, torch.nn.Module):
                 net.to(self.device)
@@ -237,13 +246,17 @@ class Diarizer:
     def _batched(self, arrays: np.ndarray, fn) -> np.ndarray:
         """Run fn over rows in pow2-padded int16 slabs on the device (one
         bucketing policy for both nets); the real rows come back to the
-        host."""
+        host.  On a mesh a slab is rounded up to the data axis, this data
+        rank runs its rows, and the rows of every data rank are gathered."""
         outs = []
         for i in range(0, len(arrays), self.max_batch):
             slab = arrays[i : i + self.max_batch]
-            padded = np.zeros((_bucket_pow2(len(slab), self.max_batch), arrays.shape[1]), np.int16)
+            b = mesh_lib.round_up_batch(_bucket_pow2(len(slab), self.max_batch), self.mesh)
+            padded = np.zeros((b, arrays.shape[1]), np.int16)
             padded[: len(slab)] = self._to_i16(slab)
-            out = fn(torch.from_numpy(padded).to(self.device))
+            if self.mesh is not None:
+                padded = np.ascontiguousarray(padded[self.mesh.local_rows(b)])
+            out = mesh_lib.all_gather(fn(torch.from_numpy(padded).to(self.device)), self.mesh)
             outs.append(out.cpu().numpy()[: len(slab)])
         return np.concatenate(outs, axis=0)
 

@@ -26,8 +26,11 @@ and cuts the same slabs, each rounded to a multiple of the data axis.  A
 data rank frontends, encodes and decodes its rows of a slab; the decode
 results are all-gathered over the data axis, and every rank then runs the
 same host logic (retry ladder, no-speech gate, seek repair, segments) and
-returns the same result.  Word timestamps and int8 decoder weights are
-not served on a mesh yet: the Transcriber refuses both there.
+returns the same result.  With word timestamps a data rank aligns its own
+rows of each slab (the teacher-forced pass on the rank's heads, the host
+chain and the DTW) and the word lists are all-gathered over the data
+axis.  int8 decoder weights serve on a data-only mesh (tp=1: whole
+weights on every rank); a model axis raises, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -260,15 +263,10 @@ class Transcriber:
                 "(the anomaly score reads word probabilities and durations, as "
                 "in openai-whisper)"
             )
-        if self.mesh is not None and self.word_timestamps:
-            raise NotImplementedError(
-                "word_timestamps on a mesh is a later slice of the port: the "
-                "alignment pass runs on one device"
-            )
-        if self.mesh is not None and _has_int8_weights(self.params):
-            raise NotImplementedError(
-                "int8 decoder weights on a mesh are a later slice of the port: "
-                "the model-parallel split reads float linears"
+        if self.mesh is not None and self.mesh.tp > 1 and _has_int8_weights(self.params):
+            raise ValueError(
+                "int8 decoder weights need model_parallel=1: the model-parallel "
+                "split reads float linears (serve them on a data-only mesh)"
             )
         if self.temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {self.temperature}")
@@ -518,6 +516,16 @@ class Transcriber:
         if self._dp == 1:
             return result
         return decode_lib.DecodeResult(*(self._all_rows(t) for t in result))
+
+    def _job_states(self, whole: torch.Tensor) -> torch.Tensor:
+        """This data rank's rows of ``whole`` padded to a multiple of the
+        data axis: the layout of a word-pass job (``_word_pass``)."""
+        if self._dp == 1:
+            return whole
+        n = whole.shape[0]
+        idx = np.zeros(self._round(n), np.int64)
+        idx[:n] = np.arange(n)
+        return whole[torch.from_numpy(self._local(idx)).to(whole.device)]
 
     def _take_rows(self, states: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
         """This rank's rows of the slab ``whole[idx]``, where ``states`` are
@@ -791,7 +799,7 @@ class Transcriber:
             patch_rows.append(ptoks)
             patch_metas.append(pmeta)
             if self.word_timestamps:
-                patch_states.append(states[: len(batch)])
+                patch_states.append(self._all_rows(states)[: len(batch)])
         patch_tokens = np.concatenate(patch_rows, axis=0)
         patch_meta = {k: np.concatenate([m[k] for m in patch_metas]) for k in patch_metas[0]}
 
@@ -835,7 +843,8 @@ class Transcriber:
         }
         if self.word_timestamps:
             all_states = torch.cat(patch_states)
-            patches["states"] = all_states[torch.from_numpy(kept).to(all_states.device)]
+            patches["states"] = self._job_states(
+                all_states[torch.from_numpy(kept).to(all_states.device)])
         return tokens, patches
 
     # -- language detection ------------------------------------------------------
@@ -923,8 +932,8 @@ class Transcriber:
         search and with the retry ladder, whose rungs keep the prompt up to
         T=0.5 and drop it above (openai's prompt_reset_on_temperature).
         Returns (tokens (n_chunks, max_new_tokens), the encoder states in
-        slabs of chunk order when word_timestamps needs them, per-window
-        meta)."""
+        slabs of chunk order when word_timestamps needs them (this data
+        rank's rows of each, ``_job_states``), per-window meta)."""
         g_size = max(1, self.condition_group_size)
         n_groups = math.ceil(n_chunks / g_size)
         token_rows = np.full((n_chunks, self.max_new_tokens), self.special.eot, np.int32)
@@ -1009,7 +1018,7 @@ class Transcriber:
                         len(audio) / 16_000.0, time_map,
                     )
                 if self.word_timestamps:
-                    kept_states.append((ids, states[: len(ids)]))
+                    kept_states.append((ids, self._all_rows(states)[: len(ids)]))
             if progress:
                 progress(0.1 + 0.8 * (r + 1) / g_size)
         states_per_slab: list[torch.Tensor] = []
@@ -1018,7 +1027,8 @@ class Transcriber:
             all_states = torch.cat([st for _, st in kept_states])
             all_states = all_states[torch.from_numpy(order).to(all_states.device)]
             slab = self._round(min(_bucket(n_chunks), self._slab_cap))
-            states_per_slab = [all_states[lo : lo + slab] for lo in range(0, n_chunks, slab)]
+            states_per_slab = [self._job_states(all_states[lo : lo + slab])
+                               for lo in range(0, n_chunks, slab)]
         return token_rows, states_per_slab, chunk_meta
 
     # -- main entry --------------------------------------------------------------
@@ -1156,7 +1166,13 @@ class Transcriber:
         """Words of every grid window (its slab's states) and seek-repair
         patch, on the original timeline, sorted by time.  The teacher-forced
         rows carry the decode's sot sequence, and each window's map is
-        cropped to its content frames (openai's find_alignment)."""
+        cropped to its content frames (openai's find_alignment).
+
+        Each job's states are this data rank's rows of the job's rows
+        padded to the data axis (a slab's own layout): the rank aligns the
+        real ones among them, which may be none on the last slab, and the
+        (job, row, words) lists of every data rank are all-gathered, so
+        every rank returns the same words in the one process's order."""
         from ..models.whisper import align
 
         lang = self._active_language if self._active_language is not None else self.language
@@ -1164,21 +1180,28 @@ class Transcriber:
             with_probabilities=True, language=self._language_code(),
             prepend_punctuations=self.prepend_punctuations,
             append_punctuations=self.append_punctuations, sot_sequence=self._sot_seq(lang),
+            mesh=self.mesh,
         )
         # (states, token rows, offsets, durations) of each slab, then the patches
         jobs = []
         for si, states in enumerate(states_per_slab):
             rows = slice(si * slab, min((si + 1) * slab, n_chunks))
-            jobs.append((states[: rows.stop - rows.start], tokens[rows], offsets[rows],
-                         durations[rows]))
+            jobs.append((states, tokens[rows], offsets[rows], durations[rows]))
         if patches is not None and "states" in patches:
             jobs.append(tuple(patches[k] for k in ("states", "tokens", "offsets", "durations")))
-        per_chunk = []
-        for states, rows, offs, durs in jobs:
-            per_chunk.extend(align.word_timestamps(
-                self.params, self.cfg, states, rows, self.special, self.tokenizer.decode, offs,
-                content_frames=np.ceil(durs / align.AUDIO_FRAME_S), **word_kw,
-            ))
+        mine = []
+        for ji, (states, rows, offs, durs) in enumerate(jobs):
+            lo = (0 if self.mesh is None else self.mesh.data_rank) * states.shape[0]
+            k = max(0, min(states.shape[0], len(rows) - lo))
+            if k == 0:
+                continue  # this rank's rows are all padding
+            mine.extend((ji, lo + j, w) for j, w in enumerate(align.word_timestamps(
+                self.params, self.cfg, states[:k], rows[lo : lo + k], self.special,
+                self.tokenizer.decode, offs[lo : lo + k],
+                content_frames=np.ceil(durs[lo : lo + k] / align.AUDIO_FRAME_S), **word_kw,
+            )))
+        every = [t for part in mesh_lib.all_gather_object(mine, self.mesh) for t in part]
+        per_chunk = [w for _, _, w in sorted(every, key=lambda t: t[:2])]
         words = [
             {**w, "start": round(time_map.to_original(w["start"]), 3),
              "end": round(time_map.to_original(w["end"]), 3)}
@@ -1414,7 +1437,8 @@ class Transcriber:
         meta_keys = ("avg_logprob", "no_speech_prob", "temperature", "compression_ratio")
         meta_by_file = [{k: np.zeros(n, np.float64) for k in meta_keys} for n in n_chunks_per]
         # word alignment needs each file's states in window order: the shared
-        # slabs are kept with their pairs and gathered per file at the end
+        # slabs (every data rank's rows) are kept with their pairs and
+        # gathered per file at the end
         kept_slab_states: list[tuple[torch.Tensor, list[tuple[int, int]]]] = []
         for lang, pairs in pairs_by_lang.items():
             self._active_language = lang
@@ -1432,7 +1456,7 @@ class Transcriber:
                     self._run_decode(audio_states), audio_states, len(batch_pairs),
                 )
                 if self.word_timestamps:
-                    kept_slab_states.append((audio_states, batch_pairs))
+                    kept_slab_states.append((self._all_rows(audio_states), batch_pairs))
                 del audio_states
                 for j, (fi, ci) in enumerate(batch_pairs):
                     rows_by_file[fi][ci] = toks[j]
@@ -1470,7 +1494,7 @@ class Transcriber:
                         sel = torch.tensor(idx, device=states.device)
                         parts.append((batch_pairs[idx[0]][1], states[sel]))
                 parts.sort(key=lambda p: p[0])
-                states_per_slab = [torch.cat([st for _, st in parts])]
+                states_per_slab = [self._job_states(torch.cat([st for _, st in parts]))]
             tokens, patches = self._apply_seek_repair(tokens, n_chunks_per[fi], trimmed[fi])
             results.append(self._finalize(
                 tokens, n_chunks_per[fi], durations_s[fi], time_maps[fi], t0, None,

@@ -3,8 +3,13 @@
 The port of the JAX package's ``runtime/services.py``: ``Services`` and
 ``build_services`` read the same ``APTPU_*`` environment into the same
 fields of the port's ``Transcriber`` and ``Diarizer``, on the card unless
-the caller passes ``device="cpu"``.  One process on one card:
-``APTPU_DISTRIBUTED=1`` (a multi-host mesh) is not ported and raises.
+the caller passes ``device="cpu"``.  Under ``APTPU_DISTRIBUTED=1`` every
+rank (one process each, e.g. started by ``torchrun``) joins the process
+group and builds the same models on a (data, model) mesh of
+``APTPU_MODEL_PARALLEL`` model ranks; rank 0 gets the job engine and
+proxies of its models (``parallel/controller.py``), and the other ranks
+get the controller to follow.  Without a multi-process environment it is
+the one-process service.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ logger = logging.getLogger(__name__)
 
 @dataclass
 class Services:
-    engine: JobEngine
+    engine: JobEngine | None  # None on a mesh's follower ranks
     processor: MeetingProcessor
     credential_store: Any | None = None  # integrations.credentials.CredentialStore
     config: dict = field(default_factory=dict)
@@ -30,6 +35,9 @@ class Services:
     # (audio_processor.py:133-150 + the before_request restore); here each
     # user_id gets its own client.
     oauth_drives: dict = field(default_factory=dict)
+    # parallel.controller.Controller under APTPU_DISTRIBUTED=1: rank 0's
+    # models are its proxies; the other ranks run ``controller.follow()``
+    controller: Any | None = None
 
     @property
     def oauth_drive(self):
@@ -106,13 +114,20 @@ def build_services(
     from ..pipeline.transcribe import Transcriber
     from .device_check import probe_device
 
+    # multi-process serving: join the process group (torchrun's or the
+    # APTPU_* topology) before the first device op, then lay the (data,
+    # model) mesh out with each model group on one host.  Only rank 0 runs
+    # a job engine (the controller below), so no rank can take another's
+    # job and a shared store is not needed: JAX's redis warning has no
+    # counterpart here.
+    mesh = None
     if os.environ.get("APTPU_DISTRIBUTED") == "1":
-        raise NotImplementedError(
-            "APTPU_DISTRIBUTED=1 (multi-host serving of the meeting job on a "
-            "torch.distributed mesh, with Diarizer(mesh=...)) is not ported to "
-            "the PyTorch package yet; a later slice of the port brings it.  "
-            "This one serves one process on one card"
-        )
+        from ..parallel import multihost
+
+        if multihost.initialize(device=None if device is None else str(device)):
+            mesh = multihost.make_multihost_mesh(
+                int(os.environ.get("APTPU_MODEL_PARALLEL") or 1), device=device)
+            logger.info("multi-host mesh: %s", mesh.shape)
 
     # Fail fast if the card does not answer — otherwise the first device op
     # below (param init / checkpoint load) may hang with no log line
@@ -184,14 +199,14 @@ def build_services(
                 "no such file exists — refusing to fall back to random "
                 "weights (is the model volume mounted?)"
             )
-        transcriber = Transcriber.from_npz(model_path, device=device, **tkw)
+        transcriber = Transcriber.from_npz(model_path, device=device, mesh=mesh, **tkw)
     else:
         logger.warning(
             "no Whisper checkpoint configured (APTPU_MODEL_PATH unset) — "
             "serving RANDOM weights; transcripts will be garbage. "
             "Test/bench mode only."
         )
-        transcriber = Transcriber.random_init(model, device=device, **tkw)
+        transcriber = Transcriber.random_init(model, device=device, mesh=mesh, **tkw)
 
     # smaller-model retry target (the reference's medium->small fallback,
     # audio_processor.py:1056-1098): jobs whose primary decode raises are
@@ -205,13 +220,14 @@ def build_services(
                 f"APTPU_FALLBACK_MODEL_PATH is set to {fb_path!r} but no "
                 "such file exists — refusing to fall back to random weights"
             )
-        fallback = Transcriber.from_npz(fb_path, device=device, **tkw)
+        fallback = Transcriber.from_npz(fb_path, device=device, mesh=mesh, **tkw)
     elif fb_model:
-        fallback = Transcriber.random_init(fb_model, device=device, **tkw)
+        fallback = Transcriber.random_init(fb_model, device=device, mesh=mesh, **tkw)
 
     # APTPU_WARMUP=<n_chunks>: build and load the kernels and run one decode
     # at startup instead of on the first request's thread.  The value is
-    # the number of 30 s windows to warm (1 = one slab); 0/unset = off.
+    # the number of 30 s windows to warm (1 = one slab); 0/unset = off.  On
+    # a mesh every rank runs it here, together.
     warmup_raw = os.environ.get("APTPU_WARMUP", "0")
     if warmup_raw not in ("", "0"):
         transcriber.warmup(None if warmup_raw == "1" else int(warmup_raw))
@@ -223,7 +239,7 @@ def build_services(
         diar_path = os.environ.get("APTPU_DIARIZER_PATH")
         # trained speaker-embedding checkpoint (cli train-embedding) —
         # composes with either segmentation source below
-        emb_kw: dict = {"device": device}
+        emb_kw: dict = {"device": device, "mesh": mesh}
         emb_path = os.environ.get("APTPU_EMBEDDING_PATH")
         if emb_path:
             if not os.path.exists(emb_path):
@@ -283,6 +299,23 @@ def build_services(
             if os.environ.get("APTPU_MAX_SPEAKERS"):
                 diarizer.max_speakers = int(os.environ["APTPU_MAX_SPEAKERS"])
 
+    controller = None
+    if mesh is not None:
+        from ..parallel.controller import Controller
+
+        controller = Controller(mesh, {"primary": transcriber, "fallback": fallback,
+                                       "diarizer": diarizer})
+        if not controller.is_leader:  # a follower: no engine, no HTTP, no clients
+            return Services(
+                engine=None,
+                processor=MeetingProcessor(transcriber=transcriber, diarizer=diarizer,
+                                           fallback_transcriber=fallback),
+                controller=controller,
+            )
+        transcriber = controller.proxy("primary")
+        fallback = controller.proxy("fallback")
+        diarizer = controller.proxy("diarizer")
+
     drive = None
     if with_drive:
         try:
@@ -337,5 +370,6 @@ def build_services(
         drive_capable=drive_capable,
     )
     return Services(
-        engine=engine, processor=processor, credential_store=credential_store
+        engine=engine, processor=processor, credential_store=credential_store,
+        controller=controller,
     )

@@ -8,10 +8,21 @@ WSGI app:
     APTPU_MODEL=small python -m audio_processor_tpu_torch.serve --port 8080
     APTPU_DEVICE=cpu python -m audio_processor_tpu_torch.serve   # the plain path
 
+On a (data, model) mesh, one process a rank (here dp2 x tp2 on four
+cards; on the CPU add ``APTPU_DEVICE=cpu``, and the ranks talk over gloo):
+
+    APTPU_DISTRIBUTED=1 APTPU_MODEL_PARALLEL=2 \\
+        torchrun --nproc-per-node 4 -m audio_processor_tpu_torch.serve --port 8080
+
+Rank 0 serves HTTP and runs the job engine; the other ranks build the same
+models and follow rank 0's calls (``parallel/controller.py``) until it
+stops.
+
 The models run on the card; ``APTPU_DEVICE=cpu`` is the only way to the
 CPU, and without a card the server refuses to start.
 ``application`` is the WSGI callable for a production server
-(``<server> audio_processor_tpu_torch.serve:application``).
+(``<server> audio_processor_tpu_torch.serve:application``); it serves one
+process, so a mesh is started with ``main`` as above.
 """
 from __future__ import annotations
 
@@ -21,18 +32,22 @@ import os
 import threading
 
 
-def build_app():
-    from .runtime.services import build_services
-    from .server.app import create_app
+def build_services():
+    from .runtime.services import build_services as build
 
-    services = build_services(
+    return build(
         model=os.environ.get("APTPU_MODEL", "tiny"),
         store_url=os.environ.get("JOB_STORE_URL", "sqlite://jobs.db"),
         max_workers=int(os.environ.get("MAX_WORKERS", "3")),
         model_path=os.environ.get("APTPU_MODEL_PATH"),
         device=os.environ.get("APTPU_DEVICE") or None,
     )
-    return create_app(services)
+
+
+def build_app(services=None):
+    from .server.app import create_app
+
+    return create_app(build_services() if services is None else services)
 
 
 # built lazily on the first request, under a lock: a threaded server fires
@@ -59,7 +74,19 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
-    build_app().run(host=args.host, port=args.port)
+    services = build_services()
+    controller = services.controller
+    if controller is not None and not controller.is_leader:
+        from .parallel import multihost
+
+        controller.follow()  # until rank 0 stops
+        multihost.shutdown()
+        return
+    try:
+        build_app(services).run(host=args.host, port=args.port)
+    finally:
+        if controller is not None:
+            controller.stop()
 
 
 if __name__ == "__main__":

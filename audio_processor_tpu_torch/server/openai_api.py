@@ -472,7 +472,10 @@ def _handle(request: Request, services: Any, task: str):
 
     if changes:
         try:
-            t = dataclasses.replace(t, **changes)
+            # a mesh proxy (parallel/controller.py) replaces its object and
+            # has the other ranks replace theirs alike
+            rebuild = getattr(t, "replace", None)
+            t = rebuild(**changes) if rebuild else dataclasses.replace(t, **changes)
         except ValueError as e:
             return _error(str(e))
 

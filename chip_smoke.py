@@ -18,8 +18,20 @@ Sharded serving: kernel #5 on each emulated model rank's shard against
 kernel B's full-head output and its plain version, then worlds of 2
 (dp1 x tp2) and 4 (dp2 x tp2) ranks, one process each (NCCL with a card
 per rank, else gloo with the ranks sharing the card), each holding the
-small config's tokens to the single-card decode and transcribing 4 min at
-whisper-small width.  Kernel B's design probes (#7, #8, #9): every variant
+small config's tokens to the single-card decode and transcribing 2 min at
+whisper-small width (the default 224-token cap).  The mesh paths ride in
+those worlds, at the bench's 96-token cap where they decode:
+``transcribe_words_tp`` (words, the hallucination filter and the int8 self
+cache on both meshes; the check config's f32 words held to the single
+card's), and in the 4-rank world ``int8_weights_dp`` (a second mesh,
+dp4 x tp1: int8 decoder weights, the check config's tokens held to the
+single card's, the bench's int8 line at 32; tp=2 must refuse them),
+``diarize_tp`` (the bundled Diarizer on dp2 x tp2: f32 activations and
+turns held to the single card's, the 30 min meeting timed) and
+``serve_tp`` (``build_services`` under APTPU_DISTRIBUTED=1: rank 0 serves
+three 2 min meetings and a word-granularity ``/v1`` request over HTTP,
+the other ranks follow its calls until the stop message; the ``serve``
+phase runs the same three jobs in one process at that cap beside them).  Kernel B's design probes (#7, #8, #9): every variant
 of the three probes at their default batches held to its plain version,
 then driven as its probe drives it and timed beside its bound, the stream
 floor and SDPA.  The service (``serve``): ``build_services`` at whisper-small
@@ -126,15 +138,20 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_rows(fn) -> list[tuple[float, str, int]]:
+def kernel_rows(fn, cpu_ops: bool = True) -> list[tuple[float, str, int]]:
     """(device ms, kernel name, calls) of every kernel fn() launches, from
     torch.profiler's kernel events (an aten op's row repeats its kernels'
-    time, so only kernel rows count), largest first."""
+    time, so only kernel rows count), largest first.  ``cpu_ops=False``
+    records the card's activity alone: the same kernel rows, with far less
+    of the profiler's host overhead (no CPU op events to record and to
+    build), but now and then a kernel at a run's edge missed, so the
+    timed kernel calls keep the CPU ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -844,6 +861,42 @@ def check_segments(out: dict, audio_s: float, phase: str) -> None:
 
 
 TP_AUDIO_S = 240.0
+# the worlds' transcription: 2 min (4 min before the mesh paths joined the
+# worlds) at the default 224-token cap.  Random weights decode every window
+# to the cap, and over gloo a mesh call's time is set by its decode steps
+# (each one 36 all-reduces).  At 96 tokens, on H100 80GB HBM3 at 700 W, a
+# dp2 x tp2 call took 8.45 s, the words call 7.39 s (dp1 x tp2) and 9.98 s
+# (dp2 x tp2), serve_tp's three jobs 29.35 s, the whole run 656.8 s.  At
+# 224 tokens those decodes take about 2.3 times as long: with transcribe_tp
+# back at 224 the run would pass the 747 s it took before the mesh paths,
+# so the mesh paths (transcribe_words_tp, serve_tp) decode to the bench's
+# 96-token cap
+TP_WORLD_AUDIO_S = 120.0
+TP_WORLD_TOKENS = 224
+MESH_PATH_TOKENS = 96
+# the check config's word pass: 70 s (three windows: on dp2 the second data
+# rank's second row is padding)
+CHECK_WORDS_AUDIO_S = 70.0
+INT8_DP_MODEL = "small"
+INT8_DP_BATCH = 32  # the bench's int8 line
+
+
+def check_words_kw() -> dict:
+    """The check config's f32 Transcriber with words (card, CPU or mesh)."""
+    return dict(cfg=check_config(), compute_dtype="float32", max_new_tokens=24,
+                tokenizer=LetterTokenizer(), word_timestamps=True, enable_fallback=False,
+                no_speech_threshold=None)
+
+
+def check_params(int8: bool = False):
+    from audio_processor_tpu_torch.models.whisper import model, quantize
+
+    params = model.init_params(check_config(), torch.Generator().manual_seed(2))
+    return quantize.quantize_decoder(params) if int8 else params
+
+
+def word_rows(words) -> list:
+    return [(w["word"], w["start"], w["end"]) for w in words]
 
 
 def _check_decodes(cfg, params, audio, mesh=None) -> dict:
@@ -895,9 +948,10 @@ def _tp_rank(rank, world, tp, port, backend, results, profile) -> None:
         res["check"] = _check_decodes(cfg, params, audio[rows].to(mesh.device), mesh)
         res["check_rows"] = (rows.start, rows.stop)
 
-        tr = Transcriber.random_init("small", mesh=mesh)  # bf16, int4 cross-KV, fallback off
+        # bf16, int4 cross-KV, fallback off
+        tr = Transcriber.random_init("small", mesh=mesh, max_new_tokens=TP_WORLD_TOKENS)
         seen = record_decodes(tr)
-        audio = speech_like(TP_AUDIO_S, 5)
+        audio = speech_like(TP_WORLD_AUDIO_S, 5)
         cold = tr.transcribe(audio)
         torch.cuda.synchronize()
         counters = (log_mel, cross_attention_int4_stacked_tp, cross_attention_int4_stacked)
@@ -912,14 +966,338 @@ def _tp_rank(rank, world, tp, port, backend, results, profile) -> None:
         res["tokens"] = np.concatenate(seen)
         if profile and rank == 0:
             res["profile"] = profile_decode(lambda: tr.transcribe(audio),
-                                            1e3 * TP_AUDIO_S / warm["rtf_x"])
+                                            1e3 * TP_WORLD_AUDIO_S / warm["rtf_x"])
         elif profile:
             tr.transcribe(audio)
+        res["words_tp"] = _rank_words(tr, mesh, counters)
+        if world == 4:  # the dp2 x tp2 world carries the data-axis paths
+            res["int8_dp"] = _rank_int8_dp(mesh, counters)
+            res["diarize_tp"] = _rank_diarize(mesh)
+            res["serve_tp"] = _rank_serve(counters)
         results.put((rank, True, res))
         dist.destroy_process_group()
     except BaseException:  # reported to the parent, which fails the run
         results.put((rank, False, traceback.format_exc()[-3000:]))
         raise
+
+
+def _rank_words(tr, mesh, counters) -> dict:
+    """transcribe_words_tp on this rank: the check config's f32 words on
+    the mesh, then the ``transcribe_words`` workload on the rank's shard of
+    ``tr`` (words, the hallucination filter, the int8 self cache), its
+    word pass timed apart by wrapping ``align``'s stages, the kernels
+    counted over the call."""
+    from audio_processor_tpu_torch.models.whisper import align
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    t = Transcriber(params=check_params(), mesh=mesh, **check_words_kw())
+    check = t.transcribe(speech_like(CHECK_WORDS_AUDIO_S, 7), remove_silence=False)
+    tw = dataclasses.replace(tr, word_timestamps=True, hallucination_silence_threshold=2.0,
+                             quantize_self_kv=True, tokenizer=LetterTokenizer(),
+                             max_new_tokens=MESH_PATH_TOKENS)
+    audio = speech_like(TP_WORLD_AUDIO_S, 5)
+    stages: dict[str, list] = {"maps": [], "costs": [], "dtw": []}
+    real = {name: getattr(align, name) for name in ("alignment_maps", "alignment_costs",
+                                                     "dtw_starts")}
+
+    def timed(name, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            stages[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    for name, key in (("alignment_maps", "maps"), ("alignment_costs", "costs"),
+                      ("dtw_starts", "dtw")):
+        setattr(align, name, timed(name, key))
+    try:
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        out = tw.transcribe(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(align, name, fn)
+    check_segments(out, TP_WORLD_AUDIO_S, "transcribe_words_tp")
+    return {
+        "check_words": [(*w, p["probability"]) for w, p in zip(word_rows(check["words"]),
+                                                                check["words"])],
+        "words": word_rows(out["words"]), "segments": len(out["segments"]),
+        "wall_s": wall, "rtf_x": TP_WORLD_AUDIO_S / wall,
+        "launches": {c.__name__: c.launches for c in counters},
+        "teacher_forced_ms_per_slab": stages["maps"], "host_chain_ms_per_slab": stages["costs"],
+        "dtw_ms_per_slab": stages["dtw"],
+    }
+
+
+def _rank_int8_dp(mesh_tp, counters) -> dict:
+    """int8_weights_dp on this rank: a second mesh of the world, dp4 x tp1;
+    the check config's f32 tokens on int8 decoder weights, then the bench's
+    int8 line (whisper-small's decoder quantized, the int8 self cache, 96
+    tokens with EOT suppressed) at a batch of 32 over the data ranks, through
+    the Transcriber's own frontend and decode; int8 weights on the tp=2 mesh
+    must raise ValueError."""
+    from audio_processor_tpu_torch.models.whisper import quantize
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.parallel import mesh as mesh_lib
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    mesh = mesh_lib.make_mesh(1)
+    out: dict = {"mesh": mesh.shape}
+    t8 = Transcriber(params=check_params(int8=True), mesh=mesh,
+                     **dict(check_words_kw(), word_timestamps=False))
+    seen = record_decodes(t8)
+    t8.transcribe(np.concatenate([speech_like(30.0, s) for s in (3, 4, 9, 12)]),
+                  remove_silence=False)
+    out["check_tokens"] = np.concatenate(seen)
+    try:
+        Transcriber(params=check_params(int8=True), mesh=mesh_tp, **check_words_kw())
+        out["tp2_refused"] = None
+    except ValueError as exc:
+        out["tp2_refused"] = str(exc)
+
+    base = Transcriber.random_init(INT8_DP_MODEL, mesh=mesh)  # whole bf16 weights on every rank
+    eot = base.special.eot
+    tb = Transcriber(params=quantize.quantize_decoder(base.params), cfg=base.cfg, mesh=mesh,
+                     quantize_self_kv=True, max_new_tokens=96, suppress_tokens=[eot])
+    del base
+    rng = np.random.default_rng(0)
+    t = np.arange(frontend.N_SAMPLES) / frontend.SAMPLE_RATE
+    wave = (0.3 * np.sin(2 * np.pi * 150 * t) * (np.sin(2 * np.pi * 1.1 * t) > -0.3)).astype(np.float32)
+    batch = np.stack([wave + rng.normal(0, 0.01, frontend.N_SAMPLES).astype(np.float32)
+                      for _ in range(INT8_DP_BATCH)])
+    rows = mesh.local_rows(INT8_DP_BATCH)
+    audio_i16 = torch.from_numpy(np.clip(batch[rows] * 32768.0, -32768, 32767)
+                                 .astype(np.int16)).to(mesh.device)
+    res = tb._run_decode(tb._frontend_encode(audio_i16))
+    if int(res.lengths.min()) != 96 or res.tokens.shape[0] != INT8_DP_BATCH:
+        fail(f"int8_weights_dp: the EOT-suppressed decode stopped early: {res.lengths.tolist()}")
+    zero_counts(counters)
+    enc_ms, dec_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = tb._frontend_encode(audio_i16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tb._run_decode(states).tokens.cpu()
+        enc_ms.append(1e3 * (t1 - t0))
+        dec_ms.append(1e3 * (time.perf_counter() - t1))
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["bench"] = {"batch": INT8_DP_BATCH, "rows_per_rank": rows.stop - rows.start,
+                    "tokens": 96, "encode_ms": enc_ms, "decode_ms": dec_ms,
+                    "ms_per_decode_step": float(np.median(dec_ms)) / 96,
+                    "rtf_x": INT8_DP_BATCH * 30.0e3 / float(np.median(
+                        [e + d for e, d in zip(enc_ms, dec_ms)]))}
+    return out
+
+
+def _diarize_check_meeting() -> np.ndarray:
+    """The JAX suite's first held-out 20 s 3-speaker meeting (rng 13579)."""
+    rng = np.random.default_rng(13579)
+    f0s = (float(rng.uniform(95, 120)), float(rng.uniform(190, 240)), float(rng.uniform(320, 378)))
+    return make_meeting(rng, f0s, 20.0)[0]
+
+
+def _diarize_meeting() -> tuple[np.ndarray, list]:
+    """The 30 min 4-speaker meeting of the diarize phase (seed 4)."""
+    rng = np.random.default_rng(4)
+    f0s = (float(rng.uniform(95, 120)), float(rng.uniform(150, 185)),
+           float(rng.uniform(220, 270)), float(rng.uniform(320, 378)))
+    return make_meeting(rng, f0s, DIARIZE_MEETING_S)
+
+
+def diarize_f32_check(d) -> tuple[np.ndarray, list]:
+    """The check-scale run in float32 (embedding convs too): the 20 s
+    meeting's segmentation activations and turns."""
+    from audio_processor_tpu_torch.models.diarization import embedding as emb_lib
+
+    d._embed_all = lambda crops: d._batched(crops, lambda x: emb_lib.embed_crops(
+        d.emb_params, d.emb_cfg, x, compute_dtype=torch.float32))
+    try:
+        audio = _diarize_check_meeting()
+        return d._segment_all(d._windows(audio)[0]), d.diarize(audio)
+    finally:
+        del d._embed_all
+
+
+def _rank_diarize(mesh) -> dict:
+    """diarize_tp on this rank: the bundled Diarizer on the mesh, in f32 at
+    the check scale (window step 2 s), then the 30 min meeting at its bf16
+    default, cold then warm, stage by stage, kernel A counted."""
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+
+    probs, turns32 = diarize_f32_check(Diarizer.bundled(window_step_s=2.0, mesh=mesh))
+    d = Diarizer.bundled(mesh=mesh)
+    audio, ref = _diarize_meeting()
+    cold, cold_st = timed_diarize(d, audio)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts([log_mel])
+    warm, st = timed_diarize(d, audio)
+    return {"check_probs": probs, "check_turns": turns32, "turns": warm, "ref": ref,
+            "warm_equals_cold": warm == cold, "cold_s": cold_st["total_s"], "stages": st,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {"log_mel": log_mel.launches}}
+
+
+def _rank_serve(counters) -> dict:
+    """serve_tp on this rank: ``build_services`` under APTPU_DISTRIBUTED=1
+    at whisper-small width with the bundled diarizer (mesh dp2 x tp2).  The
+    followers replay rank 0's calls until its stop message.  Rank 0 serves
+    ``create_app`` on a local port: three 2 min meetings through the job API
+    at once, one job held to direct mesh calls on its audio, and one
+    word-granularity ``/v1`` request held to a direct call with words."""
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+    from wsgiref.simple_server import WSGIRequestHandler
+
+    from audio_processor_tpu_torch.integrations.gemini import GeminiClient
+    from audio_processor_tpu_torch.integrations.notion import NotionClient
+    from audio_processor_tpu_torch.pipeline import ingest
+    from audio_processor_tpu_torch.pipeline.fuse import fuse_segments, relabel_speakers
+    from audio_processor_tpu_torch.runtime.services import build_services
+    from audio_processor_tpu_torch.server.app import create_app
+    from audio_processor_tpu_torch.utils import wavio
+
+    os.environ.update(APTPU_DISTRIBUTED="1", APTPU_MODEL_PARALLEL="2",
+                      CREDENTIAL_STORE_URL="memory://", APTPU_DYNAMIC_BATCH_WAIT_MS="0")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
+    svc = app = server = None
+    zero_counts(counters)
+    try:
+        t0 = time.perf_counter()
+        svc = build_services(model=SERVE_MODEL, store_url=f"sqlite://{tmp}/jobs.db",
+                             max_workers=2, with_drive=False, with_llm=False)
+        ctl = svc.controller
+        out: dict = {"init_s": time.perf_counter() - t0, "mesh": ctl.mesh.shape}
+        if not ctl.is_leader:
+            ctl.follow()
+            torch.cuda.synchronize()
+            out.update(followed=True, launches={c.__name__: c.launches for c in counters})
+            return out
+        WSGIRequestHandler.log_message = lambda self, *a: None
+        proc = svc.processor
+        # the worlds' decode cap and ids rendered as letters (so that random
+        # decodes have words), through the proxy: every call carries them,
+        # and the followers rebuild their Transcriber with them
+        proc.transcriber = proc.transcriber.replace(max_new_tokens=MESH_PATH_TOKENS,
+                                                    tokenizer=LetterTokenizer())
+        tr, d = proc.transcriber, proc.diarizer
+        prompts, notion_calls = [], []
+        proc.gemini = GeminiClient(api_key="k", http=fake_gemini_http(prompts))
+        proc.notion = NotionClient(token="t", database_id="db", http=fake_notion_http(notion_calls),
+                                   batch_pause_s=0)
+        app = create_app(svc, secret_key="chip-smoke")
+        port = free_port()
+        server = threading.Thread(target=app.run, kwargs=dict(host="127.0.0.1", port=port),
+                                  daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{port}"
+        for _ in range(100):
+            try:
+                if http_call("GET", base + "/api/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        else:
+            fail("serve_tp: the server never answered /api/health")
+        wavs = {}
+        for seed in SERVE_JOB_SEEDS:
+            rng = np.random.default_rng(seed)
+            f0s = (float(rng.uniform(95, 120)), float(rng.uniform(150, 185)),
+                   float(rng.uniform(220, 270)), float(rng.uniform(320, 378)))
+            wavs[seed] = os.path.join(tmp, f"REC_2026061{seed}_093000.wav")
+            wavio.write_wav(wavs[seed], make_meeting(rng, f0s, SERVE_MEETING_S)[0], 16_000)
+        busy0, calls0 = ctl.busy_s, ctl.calls
+        ids, t_sub, done = {}, {}, {}
+        t_all = time.perf_counter()
+        for seed, path in wavs.items():
+            status, data = http_call("POST", base + "/api/process", {"file_id": path})
+            if status != 200 or not data.get("success"):
+                fail(f"serve_tp: POST /api/process answered {status}: {data}")
+            ids[seed], t_sub[seed] = data["job_id"], time.perf_counter()
+        while len(done) < len(ids):
+            for seed, jid in ids.items():
+                if seed not in done:
+                    data = http_call("GET", f"{base}/api/job/{jid}")[1]
+                    if data["job"]["status"] in ("completed", "failed", "cancelled"):
+                        done[seed] = (time.perf_counter() - t_sub[seed], data["job"])
+            if time.perf_counter() - t_all > 600:
+                fail(f"serve_tp: jobs still running after 600 s: {sorted(set(ids) - set(done))}")
+            time.sleep(0.1)
+        wall_all = time.perf_counter() - t_all
+        torch.cuda.synchronize()
+        out["launches_jobs"] = {c.__name__: c.launches for c in counters}
+        results, stage_walls = {}, {s: [] for s in SERVE_STAGES}
+        for seed, (wall, job) in done.items():
+            res = job.get("result") or {}
+            stages = svc.engine.store.get(ids[seed]).get("stage_timings") or {}
+            if not (job["status"] == "completed" and res.get("success")
+                    and res.get("diarizer") == "bundled-synthetic"
+                    and set(stages) == set(SERVE_STAGES)):
+                fail(f"serve_tp: job {seed} ended {job['status']}: {job.get('error')}, "
+                     f"stages {sorted(stages)}")
+            results[seed] = res
+            for s in SERVE_STAGES:
+                stage_walls[s].append(stages[s])
+        out["jobs"] = {
+            "count": len(done), "audio_s": SERVE_MEETING_S, "workers": 2,
+            "wall_s": [done[s][0] for s in SERVE_JOB_SEEDS],
+            "processing_s": [results[s]["processing_s"] for s in SERVE_JOB_SEEDS],
+            "queue_wait_s": [done[s][0] - results[s]["processing_s"] for s in SERVE_JOB_SEEDS],
+            "wall_s_median": statistics.median(done[s][0] for s in SERVE_JOB_SEEDS),
+            "all_three_wall_s": wall_all,
+            "stage_s_median": {s: statistics.median(v) for s, v in stage_walls.items()},
+            "mesh_calls": ctl.calls - calls0,
+            "rank0_mesh_busy_share": (ctl.busy_s - busy0) / wall_all,
+            "segments": [len(results[s]["segments"]) for s in SERVE_JOB_SEEDS],
+        }
+        # one job against direct mesh calls (through the proxies) on its audio
+        seed = SERVE_JOB_SEEDS[0]
+        audio = ingest.load_audio(wavs[seed])
+        direct = tr.transcribe(audio)
+        direct_turns = d.diarize(audio)
+        fused = relabel_speakers(fuse_segments(direct["segments"], direct_turns),
+                                 results[seed]["identified_speakers"])
+        out["job_equals_direct"] = fused == results[seed]["segments"] and bool(direct_turns)
+        if not out["job_equals_direct"]:
+            fail(f"serve_tp: job {seed}'s segments differ from direct mesh calls")
+        # one word-granularity /v1 request against a direct call with words
+        path = os.path.join(tmp, "v1.wav")
+        wavio.write_wav(path, speech_like(SERVE_V1_S[0], 20), 16_000)
+        with open(path, "rb") as f:
+            body = f.read()
+        status, word = http_call("POST", base + "/v1/audio/transcriptions", *multipart(
+            {"response_format": "verbose_json", "timestamp_granularities[]": "word"},
+            "a.wav", body))
+        direct = tr.replace(word_timestamps=True).transcribe(ingest.load_audio(path))
+        want = [{"word": w["word"], "start": w["start"], "end": w["end"]}
+                for seg in direct["segments"] for w in seg["words"]]
+        if status != 200 or word.get("words") != want or not want:
+            fail(f"serve_tp: the word granularity answered {status}: {word}")
+        out["v1_words"] = len(want)
+        torch.cuda.synchronize()
+        out["launches"] = {c.__name__: c.launches for c in counters}
+        return out
+    finally:
+        if app is not None:
+            app.shutdown()
+        if server is not None:
+            server.join(timeout=30)
+        if svc is not None and svc.controller is not None:
+            svc.controller.stop()
+        if svc is not None and svc.engine is not None:
+            svc.engine.shutdown(wait=True)
+        for k in ("APTPU_DISTRIBUTED", "APTPU_MODEL_PARALLEL"):
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run_world(world: int, tp: int, timeout_s: float, profile: bool,
@@ -956,6 +1334,9 @@ def run_world(world: int, tp: int, timeout_s: float, profile: bool,
             got[rank] = value
         for p in procs:
             p.join(timeout=60)
+        codes = {i: p.exitcode for i, p in enumerate(procs) if p.exitcode != 0}
+        if codes:
+            fail(f"{target.__name__} world={world}: ranks exited {codes}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -964,36 +1345,78 @@ def run_world(world: int, tp: int, timeout_s: float, profile: bool,
     return [got[r] for r in range(world)], backend
 
 
-def phase_transcribe_tp(dev, single_tokens: np.ndarray) -> tuple[dict, int]:
+def phase_transcribe_tp(dev, tr) -> tuple[dict, int, list[dict], dict]:
     """Sharded serving, one process a rank: worlds of 2 (dp1 x tp2) and 4
     (dp2 x tp2).  Gates: (a) the check config's greedy and beam-3 tokens
     equal the single-card decode's; (b) whisper-small, bf16, default
-    options, 4 min of speech-like audio: every rank returns the same
+    options, 2 min of speech-like audio: every rank returns the same
     transcript and tokens, kernel #5 and log-mel launch on every rank and
     kernel B never does, the schema holds.  Reports the share of decode
-    tokens equal to the single-card transcribe phase's, the warm RTFx and,
-    for dp2 x tp2, rank 0's kernel profile (a profiled run costs several
-    unprofiled ones, so the smaller world goes without).
-    Returns (summary, kernel #5's launches summed over the dp2 x tp2
-    ranks)."""
+    tokens equal to the single card's ``tr`` on the same audio, the warm
+    RTFx and, for dp2 x tp2, rank 0's kernel profile (a profiled run costs
+    several unprofiled ones, so the smaller world goes without).
+
+    The mesh paths ride in the same worlds, each printed as a phase of its
+    own: ``transcribe_words_tp`` in both, ``int8_weights_dp``,
+    ``diarize_tp`` and ``serve_tp`` in the 4-rank one (``phase_mesh_paths``
+    holds them to the single card's references made here).
+    Returns (summary, kernel #5's launches summed over the dp2 x tp2 ranks,
+    the mesh paths' phase lines, their launches by kernel)."""
     from audio_processor_tpu_torch.models.whisper import model
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
 
     cfg = check_config()
     params = model.map_params(lambda t: t.to(dev),
                               model.init_params(cfg, torch.Generator().manual_seed(2)))
     single = _check_decodes(cfg, params, _check_audio().to(dev))
-    out = {"phase": "transcribe_tp", "model": "small (random weights)", "audio_s": TP_AUDIO_S,
-           "windows": math.ceil(TP_AUDIO_S / 30.0)}
+    # the single card on the worlds' workload, warm (``tr`` has run): the
+    # one-process numbers the meshes are printed beside
+    one = dataclasses.replace(tr, max_new_tokens=TP_WORLD_TOKENS)
+    seen = record_decodes(one)
+    audio = speech_like(TP_WORLD_AUDIO_S, 5)
+    single_rtf = one.transcribe(audio)["rtf_x"]
+    single_tokens = np.concatenate(seen)
+    t0 = time.perf_counter()
+    dataclasses.replace(one, word_timestamps=True, hallucination_silence_threshold=2.0,
+                        quantize_self_kv=True, tokenizer=LetterTokenizer(),
+                        max_new_tokens=MESH_PATH_TOKENS).transcribe(audio)
+    torch.cuda.synchronize()
+    single_words_rtf = TP_WORLD_AUDIO_S / (time.perf_counter() - t0)
+    del one
+    # the single card's references of the mesh paths
+    refs: dict = {"single_card_rtf_x_with_words": single_words_rtf}
+    t = Transcriber(params=check_params(), device=dev, **check_words_kw())
+    refs["check_words"] = t.transcribe(speech_like(CHECK_WORDS_AUDIO_S, 7),
+                                       remove_silence=False)["words"]
+    t8 = Transcriber(params=check_params(int8=True), device=dev,
+                     **dict(check_words_kw(), word_timestamps=False))
+    seen8 = record_decodes(t8)
+    t8.transcribe(np.concatenate([speech_like(30.0, s) for s in (3, 4, 9, 12)]),
+                  remove_silence=False)
+    refs["int8_tokens"] = np.concatenate(seen8)
+    refs["diarize_probs"], refs["diarize_turns"] = diarize_f32_check(
+        Diarizer.bundled(window_step_s=2.0, device=dev))
+    refs["diarize_bf16_turns"] = Diarizer.bundled(device=dev).diarize(_diarize_meeting()[0])
+    del t, t8
+    torch.cuda.empty_cache()
+
+    out = {"phase": "transcribe_tp", "model": "small (random weights)",
+           "audio_s": TP_WORLD_AUDIO_S, "windows": math.ceil(TP_WORLD_AUDIO_S / 30.0),
+           "max_new_tokens": TP_WORLD_TOKENS, "single_card_warm_rtf_x": single_rtf}
+    worlds = {}
     for world, tp in ((2, 2), (4, 2)):
         t0 = time.perf_counter()
-        ranks, backend = run_world(world, tp, timeout_s=420.0, profile=world == 4)
+        ranks, backend = run_world(world, tp, timeout_s=420.0 if world == 2 else 900.0,
+                                   profile=world == 4)
         name = f"dp{world // tp}xtp{tp}"
+        worlds[name] = (ranks, backend)
         for r in ranks:
             lo, hi = r["check_rows"]
             for k, toks in r["check"].items():
                 if not np.array_equal(toks, single[k][lo:hi]):
                     fail(f"transcribe_tp {name} rank {r['rank']}: {k} tokens differ from one card's")
-            check_segments(r["warm"], TP_AUDIO_S, f"transcribe_tp {name}")
+            check_segments(r["warm"], TP_WORLD_AUDIO_S, f"transcribe_tp {name}")
             if r["warm"] != ranks[0]["warm"] or not np.array_equal(r["tokens"], ranks[0]["tokens"]):
                 fail(f"transcribe_tp {name}: rank {r['rank']}'s transcript differs from rank 0's")
             launches = r["launches"]
@@ -1015,7 +1438,134 @@ def phase_transcribe_tp(dev, single_tokens: np.ndarray) -> tuple[dict, int]:
                 else f"shapes differ: {tokens.shape} vs {single_tokens.shape}"),
         }
     kernel5 = sum(l["cross_attention_int4_stacked_tp"] for l in out["dp2xtp2"]["launches_per_rank"])
-    return out, kernel5
+    phases, launches = phase_mesh_paths(worlds, refs)
+    return out, kernel5, phases, launches
+
+
+def _words_match(got, want, tol: float = 1e-4) -> bool:
+    """(word, start, end) equal, probabilities within ``tol``."""
+    return len(got) == len(want) and all(
+        g[:3] == (w["word"], w["start"], w["end"]) and abs(g[3] - w["probability"]) <= tol
+        for g, w in zip(got, want))
+
+
+def phase_mesh_paths(worlds: dict, refs: dict) -> tuple[list[dict], dict]:
+    """The mesh paths' gates and phase lines, from the ranks of the
+    transcribe_tp worlds and the single card's references.
+    ``transcribe_words_tp`` (dp1 x tp2, dp2 x tp2): every rank's words equal
+    rank 0's; the check config's f32 words equal the single card's (probabilities
+    within 1e-4); #5 and kernel A launch on every rank and kernel B never.
+    ``int8_weights_dp`` (dp4 x tp1): the check config's f32 tokens on int8
+    weights equal the single card's; kernel B launches on every rank and #5
+    never; tp=2 raised ValueError.  ``diarize_tp`` (dp2 x tp2): every rank's
+    turns equal rank 0's; in f32 at the check scale the activations lie
+    within 1e-4 of the single card's and the turns are equal; kernel A
+    launches on every rank.  ``serve_tp`` (dp2 x tp2): the jobs' gates on
+    rank 0 (9 stages, one job equal to direct mesh calls, the /v1 words
+    equal a direct call's), the followers exited after the stop message.
+    Returns (phase lines, launches by kernel and path, summed over ranks)."""
+    from audio_processor_tpu_torch.utils.metrics import diarization_error_rate_detailed
+
+    phases, launches = [], {}
+    words = {"phase": "transcribe_words_tp", "model": "small (random weights)",
+             "options": "word_timestamps, hallucination_silence_threshold=2.0, quantize_self_kv",
+             "audio_s": TP_WORLD_AUDIO_S, "max_new_tokens": MESH_PATH_TOKENS,
+             "single_card_rtf_x_with_words": refs["single_card_rtf_x_with_words"]}
+    for name, (ranks, backend) in worlds.items():
+        for r in ranks:
+            w = r["words_tp"]
+            if w["words"] != ranks[0]["words_tp"]["words"] or not w["words"]:
+                fail(f"transcribe_words_tp {name}: rank {r['rank']}'s words differ from rank 0's")
+            if not _words_match(w["check_words"], refs["check_words"]):
+                fail(f"transcribe_words_tp {name} rank {r['rank']}: the check config's words "
+                     "differ from the single card's")
+            lw = w["launches"]
+            if not (lw["cross_attention_int4_stacked_tp"] and lw["log_mel"]) \
+                    or lw["cross_attention_int4_stacked"]:
+                fail(f"transcribe_words_tp {name} rank {r['rank']}: launches {lw}")
+        words[name] = {
+            "backend": backend, "check_words_equal_single_card": True,
+            "check_words": len(refs["check_words"]),
+            "words": len(ranks[0]["words_tp"]["words"]),
+            "segments": ranks[0]["words_tp"]["segments"],
+            "warm_rtf_x_with_words": ranks[0]["words_tp"]["rtf_x"],
+            "warm_wall_s_with_words": ranks[0]["words_tp"]["wall_s"],
+            "per_rank": [{k: r["words_tp"][k] for k in (
+                "teacher_forced_ms_per_slab", "host_chain_ms_per_slab", "dtw_ms_per_slab",
+                "wall_s", "launches")} for r in ranks],
+        }
+    phases.append(words)
+    ranks, backend = worlds["dp2xtp2"]
+    for key in ("log_mel", "cross_attention_int4_stacked_tp", "cross_attention_int4_stacked"):
+        launches[(key, "words_tp")] = sum(r["words_tp"]["launches"][key]
+                                          for rs, _ in worlds.values() for r in rs)
+
+    int8 = {"phase": "int8_weights_dp", "backend": backend, "mesh": ranks[0]["int8_dp"]["mesh"],
+            "model": f"{INT8_DP_MODEL} (random weights), decoder int8"}
+    for r in ranks:
+        i8 = r["int8_dp"]
+        if not np.array_equal(i8["check_tokens"], refs["int8_tokens"]):
+            fail(f"int8_weights_dp rank {r['rank']}: the check config's tokens differ from the "
+                 "single card's")
+        if not (i8["tp2_refused"] and "model_parallel=1" in i8["tp2_refused"]):
+            fail(f"int8_weights_dp rank {r['rank']}: tp=2 was not refused: {i8['tp2_refused']}")
+        li = i8["launches"]
+        if not li["cross_attention_int4_stacked"] or li["cross_attention_int4_stacked_tp"]:
+            fail(f"int8_weights_dp rank {r['rank']}: launches {li}")
+    int8.update(check_tokens_equal_single_card=True, tp2_raises_value_error=True,
+                bench=ranks[0]["int8_dp"]["bench"],
+                launches_per_rank=[r["int8_dp"]["launches"] for r in ranks])
+    phases.append(int8)
+    for key in ("log_mel", "cross_attention_int4_stacked", "cross_attention_int4_stacked_tp"):
+        launches[(key, "int8_dp")] = sum(r["int8_dp"]["launches"][key] for r in ranks)
+
+    d0 = ranks[0]["diarize_tp"]
+    for r in ranks:
+        dz = r["diarize_tp"]
+        err = float(np.abs(dz["check_probs"] - refs["diarize_probs"]).max())
+        if not (dz["turns"] == d0["turns"] and dz["turns"] and err <= 1e-4
+                and dz["check_turns"] == refs["diarize_turns"] and dz["launches"]["log_mel"]):
+            fail(f"diarize_tp rank {r['rank']}: turns equal rank 0's {dz['turns'] == d0['turns']}, "
+                 f"f32 activations max abs err {err}, f32 turns equal "
+                 f"{dz['check_turns'] == refs['diarize_turns']}, launches {dz['launches']}")
+    phases.append({
+        "phase": "diarize_tp", "backend": backend, "model": "bundled", "mesh": "dp2xtp2",
+        "audio_s": DIARIZE_MEETING_S, "check_f32_turns_equal_single_card": True,
+        "check_f32_activations_max_abs_err": max(
+            float(np.abs(r["diarize_tp"]["check_probs"] - refs["diarize_probs"]).max())
+            for r in ranks),
+        "cold_s": d0["cold_s"], "stages": d0["stages"],
+        "warm_rtf_x": DIARIZE_MEETING_S / d0["stages"]["total_s"],
+        "peak_mem_gb_rank0": d0["peak_mem_gb"], "turns": len(d0["turns"]),
+        "warm_equals_cold": d0["warm_equals_cold"],
+        "der_vs_reference": diarization_error_rate_detailed(d0["ref"], d0["turns"],
+                                                            collar_s=0.25),
+        "der_vs_single_card_bf16": diarization_error_rate_detailed(
+            refs["diarize_bf16_turns"], d0["turns"], collar_s=0.0),
+        "launches_per_rank": [r["diarize_tp"]["launches"] for r in ranks],
+    })
+    launches[("log_mel", "diarize_tp")] = sum(r["diarize_tp"]["launches"]["log_mel"] for r in ranks)
+
+    s0 = ranks[0]["serve_tp"]
+    if not all(r["serve_tp"].get("followed") for r in ranks[1:]):
+        fail("serve_tp: a follower did not leave on the stop message")
+    for r in ranks:
+        ls = r["serve_tp"]["launches"]
+        if not (ls["log_mel"] and ls["cross_attention_int4_stacked_tp"]) \
+                or ls["cross_attention_int4_stacked"]:
+            fail(f"serve_tp rank {r['rank']}: launches {ls}")
+    phases.append({
+        "phase": "serve_tp", "backend": backend, "model": f"{SERVE_MODEL} (random weights, seed 0)",
+        "max_new_tokens": MESH_PATH_TOKENS, "mesh": s0["mesh"], "init_s": s0["init_s"],
+        "jobs": s0["jobs"],
+        "job_equals_direct_mesh_calls": s0["job_equals_direct"], "v1_words": s0["v1_words"],
+        "followers_left_on_stop": True,
+        "launches_jobs_rank0": s0["launches_jobs"],
+        "launches_per_rank": [r["serve_tp"]["launches"] for r in ranks],
+    })
+    for key in ("log_mel", "cross_attention_int4_stacked_tp", "cross_attention_int4_stacked"):
+        launches[(key, "serve_tp")] = sum(r["serve_tp"]["launches"][key] for r in ranks)
+    return phases, launches
 
 
 def zero_counts(counters) -> None:
@@ -1284,10 +1834,11 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder:
 
 
 def profile_decode(fn, unprofiled_ms: float) -> dict | str:
-    """Device time by kernel over one encode+decode batch.  The busy share
-    divides the kernel time by the UNPROFILED wall time of the same work,
-    since the profiler slows the host several-fold."""
-    rows = kernel_rows(fn)
+    """Device time by kernel over one encode+decode batch (the card's
+    activity alone).  The busy share divides the kernel time by the
+    UNPROFILED wall time of the same work, since the profiler slows the
+    host."""
+    rows = kernel_rows(fn, cpu_ops=False)
     if not rows:
         return "not measured (the profiler recorded no kernel time)"
     total = sum(r[0] for r in rows)
@@ -1444,7 +1995,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_serve(dev, card: str) -> tuple[dict, dict]:
+def phase_serve(dev, card: str, mesh_jobs: dict | None = None) -> tuple[dict, dict]:
     """The port's service on the card, over real HTTP: ``build_services``
     at whisper-small width (random weights, seed 0) with the bundled
     diarizer, an sqlite store and 2 job workers, Gemini and Notion on fake
@@ -1455,7 +2006,9 @@ def phase_serve(dev, card: str) -> tuple[dict, dict]:
     counted); then 4 concurrent ``/v1`` uploads, which must coalesce and
     each equal its own ``transcribe``, an srt request and a word-granularity
     request, whose words must equal a direct ``transcribe`` with
-    word_timestamps.  The jobs run again under the profiler for the
+    word_timestamps.  The three jobs run again at the mesh paths' 96-token
+    cap, printed beside ``mesh_jobs`` (``serve_tp``'s jobs, the same three
+    at that cap on dp2 x tp2), and once more under the profiler for the
     card's busy share."""
     import shutil
     import statistics
@@ -1679,6 +2232,29 @@ def phase_serve(dev, card: str) -> tuple[dict, dict]:
                      "batch_stats": stats, "texts_equal_own_transcribe": True,
                      "srt_status": srt_status, "word_status": status, "v1_words": len(want)}
         out["launches_v1"] = v1_launches
+
+        # the same three jobs at the mesh paths' cap, as serve_tp runs them
+        proc.transcriber = dataclasses.replace(tr, max_new_tokens=MESH_PATH_TOKENS,
+                                               tokenizer=LetterTokenizer())
+        try:
+            _, cap_done, cap_wall = run_jobs()
+        finally:
+            proc.transcriber = tr
+        cap = {seed: job.get("result") or {} for seed, (_, job) in cap_done.items()}
+        if not all(job["status"] == "completed" and cap[seed].get("success")
+                   for seed, (_, job) in cap_done.items()):
+            fail(f"serve: a job at {MESH_PATH_TOKENS} tokens failed: "
+                 f"{[job.get('error') for _, job in cap_done.values()]}")
+        walls = ("wall_s", "processing_s", "queue_wait_s", "all_three_wall_s")
+        out["jobs_at_mesh_cap"] = {
+            "max_new_tokens": MESH_PATH_TOKENS,
+            "one_process": {
+                "wall_s": [cap_done[s][0] for s in SERVE_JOB_SEEDS],
+                "processing_s": [cap[s]["processing_s"] for s in SERVE_JOB_SEEDS],
+                "queue_wait_s": [cap_done[s][0] - cap[s]["processing_s"] for s in SERVE_JOB_SEEDS],
+                "all_three_wall_s": cap_wall},
+            "serve_tp_dp2xtp2": None if mesh_jobs is None else {k: mesh_jobs[k] for k in walls},
+        }
 
         # the same three jobs again, under the profiler: the card's busy share
         out["profile_jobs"] = profile_decode(lambda: run_jobs(), 1e3 * wall_all)
@@ -2484,7 +3060,9 @@ def main(argv: list[str] | None = None) -> None:
     if args.tp_only:
         summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
         emit(summary)
-        emit(phase_transcribe_tp(dev, tr.tokens)[0])
+        tp_summary, _, mesh_phases, _ = phase_transcribe_tp(dev, tr)
+        for line in (tp_summary, *mesh_phases):
+            emit(line)
         emit(phase_train_tp())
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
         print(card, flush=True)
@@ -2515,8 +3093,15 @@ def main(argv: list[str] | None = None) -> None:
     kernels["cross_attn_int4_single"]["launches"] = (
         summary["launches"]["cross_attention_int4"] + openai["launches"]["cross_attention_int4"])
     torch.cuda.empty_cache()
-    tp_summary, kernels["cross_attn_int4_tp"]["launches"] = phase_transcribe_tp(dev, tr.tokens)
+    tp_summary, kernels["cross_attn_int4_tp"]["launches"], mesh_phases, mesh_launches = (
+        phase_transcribe_tp(dev, tr))
     emit(tp_summary)
+    for line in mesh_phases:
+        emit(line)
+    names = {"log_mel": "log_mel", "cross_attention_int4_stacked": "cross_attn_int4",
+             "cross_attention_int4_stacked_tp": "cross_attn_int4_tp"}
+    for (counter, path), n in mesh_launches.items():
+        kernels[names[counter]][f"launches_{path}"] = n
     emit(phase_bench(dev, tr, bs=32, n_timed=5, profile=True))
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False))
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False, fused_encoder=True,
@@ -2533,7 +3118,8 @@ def main(argv: list[str] | None = None) -> None:
     torch.cuda.empty_cache()
     emit(phase_transcribe_words(dev, [log_mel, cross_attention_int4_stacked], card))
     torch.cuda.empty_cache()
-    serve, serve_launches = phase_serve(dev, card)
+    serve, serve_launches = phase_serve(
+        dev, card, next(p for p in mesh_phases if p["phase"] == "serve_tp")["jobs"])
     emit(serve)
     for name, n in serve_launches.items():
         kernels[name]["launches_serve"] = n

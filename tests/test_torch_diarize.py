@@ -237,8 +237,12 @@ def test_random_init_contract(segmentation):
 
 
 def test_mesh_and_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Diarizer.bundled(device="cpu", mesh=object())
+    """A device other than the mesh's raises, as the Transcriber's does;
+    so does the default device without a card."""
+    from audio_processor_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="is not the mesh's"):
+        Diarizer.bundled(device="cpu", mesh=Mesh(1, 1, 0, 0, torch.device("cuda", 0)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Diarizer.bundled()

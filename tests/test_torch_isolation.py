@@ -36,11 +36,14 @@ def test_every_port_module_imports_without_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        # the word-timestamp, int8, conversion and training modules are among them
+        # the word-timestamp, int8, conversion, training and mesh-service
+        # modules are among them
         for name in ("models.whisper.align", "models.whisper.quantize", "ops.kernels.dtw",
                      "models.whisper.convert", "models.diarization.convert",
                      "training.pytree_io", "training.train_step", "training.checkpoint",
-                     "training.diarization_trainer", "training.embedding_trainer"):
+                     "training.diarization_trainer", "training.embedding_trainer",
+                     "parallel.controller", "parallel.mesh", "parallel.multihost",
+                     "runtime.services", "serve"):
             assert pkg.__name__ + "." + name in names, name
         leaked = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]

@@ -5,7 +5,9 @@ card: A (log-mel, on Whisper's 30 s windows and the diarizer's 10 s and
 encoder self-attention; the C++ DTW of the word timestamps against its
 numpy twin; and the paths that run them (greedy, int8-kernel greedy and
 beam decodes, with the int8 self cache too, the bundled Diarizer) against
-the CPU's results.
+the CPU's results; and the mesh paths (word timestamps, int8 decoder
+weights, the Diarizer and the service under ``APTPU_DISTRIBUTED=1``) on a
+world of 2 gloo ranks sharing the card, each with its kernel launches.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  This file imports neither jax nor the JAX package,
@@ -585,3 +587,108 @@ def test_dtw_native_equals_twin(dev, seed):
         np.testing.assert_array_equal(got, dtw.dtw_wavefront(cost, t, ta))
     with pytest.raises(ValueError):
         dtw.dtw_native(plateaus, 41, 300)
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: a world of 2 gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+_MESH_CFG = WhisperConfig(name="check", n_mels=80, n_audio_ctx=1500, n_audio_state=128,
+                          n_audio_head=2, n_audio_layer=2, n_vocab=1024, n_text_ctx=64,
+                          n_text_state=128, n_text_head=2, n_text_layer=2)
+
+
+class _Letters:
+    def encode(self, text):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return "".join(" " if int(i) % 5 == 0 else chr(97 + int(i) % 26) for i in ids)
+
+
+def _speech(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16_000)) / 16_000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.5 * t)
+    sig = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
+    sig = sig * (np.sin(2 * np.pi * 1.3 * t) > -0.2) * 0.3 + rng.normal(0, 0.01, len(t))
+    return sig.astype(np.float32)
+
+
+def case_mesh_path(path):
+    """One mesh path on this rank of a 2-rank world, its kernels counted as
+    the smoke counts them (zeroed just before the path, read just after)."""
+    import os
+
+    from audio_processor_tpu_torch.models.whisper import quantize
+    from audio_processor_tpu_torch.parallel import mesh as mesh_lib
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    set_full_fp32()
+    counters = (log_mel, da.cross_attention_int4_stacked, da.cross_attention_int4_stacked_tp)
+    kw = dict(cfg=_MESH_CFG, compute_dtype="float32", max_new_tokens=8, tokenizer=_Letters(),
+              enable_fallback=False, no_speech_threshold=None)
+    params = model.init_params(_MESH_CFG, torch.Generator().manual_seed(2))
+    mesh = mesh_lib.make_mesh(1 if path == "int8_weights" else 2)
+    for c in counters:
+        c.launches = 0
+    if path == "words":  # dp1 x tp2
+        t = Transcriber(params=params, mesh=mesh, word_timestamps=True, **kw)
+        got = [(w["word"], w["start"], w["end"]) for w in t.transcribe(_speech(40, 3))["words"]]
+    elif path == "int8_weights":  # dp2 x tp1
+        t = Transcriber(params=quantize.quantize_decoder(params), mesh=mesh, **kw)
+        got = [s["tokens"] for s in t.transcribe(_speech(40, 3))["segments"]]
+    elif path == "diarizer":  # dp1 x tp2
+        got = Diarizer.bundled(mesh=mesh).diarize(_speech(20, 4))
+    else:  # the service under APTPU_DISTRIBUTED=1, dp1 x tp2: one /v1-style call
+        from audio_processor_tpu_torch.runtime import services
+
+        os.environ.update(APTPU_DISTRIBUTED="1", APTPU_MODEL_PARALLEL="2")
+        try:
+            svc = services.build_services(model="tiny", with_drive=False, with_llm=False,
+                                          diarization=False)
+        finally:
+            for k in ("APTPU_DISTRIBUTED", "APTPU_MODEL_PARALLEL"):
+                os.environ.pop(k)
+        for c in counters:
+            c.launches = 0
+        if svc.controller.is_leader:
+            got = svc.processor.transcriber.transcribe(_speech(20, 5))["text"]
+            svc.controller.stop()
+            svc.engine.shutdown(wait=False)
+        else:
+            svc.controller.follow()
+            got = None
+    torch.cuda.synchronize()
+    return got, {c.__name__: c.launches for c in counters}
+
+
+@pytest.mark.parametrize("path,want", [
+    ("words", {"log_mel": True, "cross_attention_int4_stacked_tp": True,
+               "cross_attention_int4_stacked": False}),
+    ("int8_weights", {"log_mel": True, "cross_attention_int4_stacked_tp": False,
+                      "cross_attention_int4_stacked": True}),
+    ("diarizer", {"log_mel": True}),
+    ("service", {"log_mel": True, "cross_attention_int4_stacked_tp": True,
+                 "cross_attention_int4_stacked": False}),
+])
+def test_mesh_path_launches_its_kernels(dev, path, want):
+    """Each mesh path on 2 gloo ranks sharing the card launches the kernels
+    the smoke counts for it on every rank (kernel A; #5 on tp=2, kernel B
+    on the data-only mesh of int8 weights) and no other, and the ranks
+    agree (the service's follower returns after the stop message)."""
+    from test_torch_parallel import World
+
+    w = World(2)
+    try:
+        out = w.run(case_mesh_path, path, timeout=600.0)
+    finally:
+        w.close()
+    for got, launches in out:
+        for name, on in want.items():
+            assert bool(launches[name]) == on, (path, launches)
+    if path != "service":
+        assert out[0][0] == out[1][0] and out[0][0]
+    else:
+        assert out[0][0] is not None and out[1][0] is None

@@ -3,7 +3,8 @@
 The same ``APTPU_*`` environment must give the same Transcriber and
 Diarizer fields in both packages (the port's ``build_services`` runs with
 ``device="cpu"``); configured-but-missing paths raise FileNotFoundError;
-``APTPU_DISTRIBUTED=1`` raises NotImplementedError; the probe raises
+``APTPU_DISTRIBUTED=1`` without a process group is the one-process service
+(``tests/test_torch_mesh_paths.py`` runs it on a world); the probe raises
 without a card and on a timeout.  The JAX suite's cases
 (``tests/test_build_services.py``, ``tests/test_device_check.py``,
 ``tests/test_serve_entry.py``) run against the port.
@@ -143,9 +144,21 @@ def test_configured_but_missing_paths_raise(var, tmp_path, monkeypatch):
 
 
 def test_distributed_raises(monkeypatch):
+    """APTPU_DISTRIBUTED=1 with no multi-process environment: ``initialize``
+    returns False and the service is the one-process service (no mesh, no
+    controller), as JAX's is with one process."""
     monkeypatch.setenv("APTPU_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        services.build_services(model="test", device="cpu")
+    for var in ("APTPU_COORDINATOR", "APTPU_NUM_PROCESSES", "APTPU_PROCESS_ID",
+                "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    svc = services.build_services(model="test", device="cpu", with_drive=False,
+                                  with_llm=False)
+    try:
+        assert svc.controller is None and svc.engine is not None
+        assert isinstance(svc.processor.transcriber, Transcriber)
+        assert svc.processor.transcriber.mesh is None and svc.processor.diarizer.mesh is None
+    finally:
+        svc.engine.shutdown(wait=False)
 
 
 def test_language_out_of_range_fails_at_startup(monkeypatch):

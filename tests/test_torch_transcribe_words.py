@@ -250,11 +250,20 @@ def test_hallucination_threshold_needs_word_timestamps():
 
 @pytest.mark.parametrize("option", ["word_timestamps", "int8_weights"])
 def test_mesh_refuses_words_and_int8_weights(base, option):
-    """Word timestamps and int8 decoder weights wait for a later slice on a
-    mesh; the int8 self cache has rank-local scales and is allowed."""
+    """Word timestamps serve on a mesh, and so do int8 decoder weights on a
+    data-only one (tp=1: each rank keeps the whole int8 tree); on a model
+    axis int8 weights raise ValueError, as JAX's ``shard_params`` does.
+    ("word_timestamps": the tp=1 acceptance case, with words; "int8_weights":
+    the tp=2 refusal.)"""
     _, params, cfg = base
-    mesh = mesh_lib.Mesh(1, 2, 0, 0, torch.device("cpu"))
-    kw = {"word_timestamps": True} if option == "word_timestamps" else {}
-    p = quantize.quantize_decoder(params) if option == "int8_weights" else params
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Transcriber(params=p, cfg=cfg, device="cpu", mesh=mesh, **kw)
+    p = quantize.quantize_decoder(params)
+    if option == "word_timestamps":
+        t = Transcriber(params=p, cfg=cfg, device="cpu", word_timestamps=True,
+                        mesh=mesh_lib.Mesh(2, 1, 0, 0, torch.device("cpu")))
+        q = t.params["decoder"]["blocks"]["attn"]["q"]
+        assert t.word_timestamps and q["w8"].dtype == torch.int8
+        assert q["w8"].shape == p["decoder"]["blocks"]["attn"]["q"]["w8"].shape
+    else:
+        with pytest.raises(ValueError, match="model_parallel=1"):
+            Transcriber(params=p, cfg=cfg, device="cpu", word_timestamps=True,
+                        mesh=mesh_lib.Mesh(1, 2, 0, 0, torch.device("cpu")))

@@ -14,6 +14,8 @@ ops           Log-mel frontend and the hand-written Hopper kernels
               (``ops/kernels``; CUDA C++ sources under ``csrc/``).
 models        Whisper and the diarization nets.
 parallel      The (data, model) mesh on ``torch.distributed``.
+native        Host C++ ingest built with g++ at first use: the WAV decoder
+              and resampler, and the codec-library (m4a/aac/...) decoder.
 pipeline      Ingest, the ``Transcriber``, the ``Diarizer``, fusion and the
               9-stage meeting job.
 integrations  Drive, PDF, Gemini, Notion and the credential store.

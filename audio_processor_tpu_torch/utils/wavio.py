@@ -2,8 +2,9 @@
 
 The reference shells out to ffmpeg to produce 16 kHz mono s16le WAV
 (reference: app/services/audio_processor.py:912-923).  Here WAV parsing is
-first-party; non-WAV containers (m4a/ogg/...) are decoded by an ffmpeg
-binary if one exists on the host (see audio_processor_tpu_torch.pipeline.ingest).
+first-party; non-WAV containers (m4a/ogg/...) are decoded by the optional
+native decoder or an ffmpeg binary if one exists on the host (see
+audio_processor_tpu_torch.pipeline.ingest).
 A copy of the JAX package's module: the port imports nothing from it.
 """
 from __future__ import annotations

@@ -38,7 +38,15 @@ floor and SDPA.  The service (``serve``): ``build_services`` at whisper-small
 width with the bundled diarizer, ``create_app`` on a local port, three
 2 min meetings through the job API at once (all 9 stages, one job held to
 direct calls, kernels A and B counted), four concurrent ``/v1`` uploads
-through the dynamic batcher.  Word timestamps (``transcribe_words``): the
+through the dynamic batcher.  Ingest (``ingest``, after the bench lines):
+the port's C++ WAV decoder, built with g++, on a seeded 10 min 44.1 kHz
+stereo WAV through ``ingest.load_audio`` against the Python reader +
+``resample_host`` (2e-7), each C entry point timed; then the media build's
+state: without the libav headers one ``media`` line says so, with them a
+failed build fails the run, and a 4 min .m4a (``encode_m4a``) is gated
+against its WAV twin, the ``transcribe`` cell runs from its path (tokens
+equal to the decoded array's) and a 2 min meeting .m4a runs the 9 stages
+at 96 tokens, kernels A and B counted.  Word timestamps (``transcribe_words``): the
 ``transcribe`` workload with word_timestamps, the hallucination filter and
 the int8 self cache, its teacher-forced pass, host chain and DTW (the C++
 function against its numpy twin on the phase's own costs) timed apart,
@@ -232,10 +240,9 @@ def log_mel_bounds(rows: int, n: int) -> tuple[float, str, float, float]:
     return fn_ms, by, bound_ms(nbytes, dft)[0], bound_ms(nbytes, four)[0]
 
 
-def speech_like(seconds: float, seed: int) -> np.ndarray:
+def speech_like(seconds: float, seed: int, sr: int = 16_000) -> np.ndarray:
     """Seeded synthetic 'speech': AM-modulated harmonics, noise, pauses."""
     rng = np.random.default_rng(seed)
-    sr = 16_000
     t = np.arange(int(seconds * sr)) / sr
     f0 = 120 + 30 * np.sin(2 * np.pi * 0.5 * t)
     sig = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
@@ -2279,6 +2286,282 @@ def phase_serve(dev, card: str, mesh_jobs: dict | None = None) -> tuple[dict, di
         torch.cuda.empty_cache()
 
 
+INGEST_WAV_S = 600.0  # a 10 min 44.1 kHz stereo 16-bit WAV
+INGEST_M4A_S = 240.0  # a 4 min speech-like .m4a
+INGEST_JOB_S = 120.0  # a 2 min meeting .m4a through the 9 stages
+INGEST_REPS = 3
+INGEST_WAV_GATE = 2e-7
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it, and its cores (ingest is
+    host work)."""
+    keys = ("model name", "vendor_id", "cpu family", "model", "cpu MHz")
+    seen: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                k, _, v = ln.partition(":")
+                if k.strip() in keys:
+                    seen.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    named = "; ".join(f"{k} {seen[k]}" for k in keys if k in seen) or "not named"
+    return f"{named}; {os.cpu_count()} cores"
+
+
+def host_ms(fn, reps: int = INGEST_REPS):
+    """(median wall ms of ``reps`` calls, the last call's result)."""
+    import statistics
+
+    walls, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls), out
+
+
+def twin_gates(ref: np.ndarray, got: np.ndarray) -> dict:
+    """The JAX media test's criteria for a lossy decode against its WAV
+    twin (``tests/test_native_media.py``): length within 60 ms, the same
+    spectral peak within 2 bins, the twin's two strongest bins above a
+    tenth of the decode's peak, RMS within 15 %."""
+    def spectrum(y, n=32768, skip=4000):
+        return np.abs(np.fft.rfft(y[skip: skip + n] * np.hanning(n)))
+
+    fr, fg = spectrum(ref), spectrum(got)
+    top = np.argsort(fr)[-2:]
+    rms_r, rms_g = float(np.sqrt(np.mean(ref ** 2))), float(np.sqrt(np.mean(got ** 2)))
+    return {
+        "length": abs(len(got) - len(ref)) < 0.06 * 16_000,
+        "peak": abs(int(np.argmax(fr)) - int(np.argmax(fg))) <= 2,
+        "bins_survive": all(fg[max(b - 4, 0): b + 5].max() > 0.1 * fg.max() for b in top),
+        "rms": abs(rms_g - rms_r) <= 0.15 * rms_r,
+    }
+
+
+def phase_ingest(dev, tr, counters) -> tuple[list[dict], dict]:
+    """The port's native ingest on the card machine's host.  (a) WAV: the
+    C++ decoder builds with g++ (a failure fails the run), then a seeded
+    10 min 44.1 kHz stereo 16-bit WAV decodes through ``ingest.load_audio``
+    (the native path, checked by a count of its calls) and through the
+    Python reader + ``resample_host`` on the CPU, gated at 2e-7 and timed,
+    with each C entry point timed alone.  (b) Media: where the compiler
+    finds no libav headers, one line says so and the phase goes on; where
+    it finds them, a failed build fails the run, and a 4 min .m4a made by
+    ``encode_m4a`` is gated against its WAV twin, its decode timed, the
+    ``transcribe`` cell run from its path (tokens equal to the call on the
+    decoded array) and a 2 min meeting .m4a run through the 9 stages at
+    96 tokens with fake integrations, kernels A and B counted in both.
+    Returns (lines, launches by run)."""
+    import ctypes
+    import shutil
+
+    from audio_processor_tpu_torch.native import audio_io, media
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.pipeline import ingest
+    from audio_processor_tpu_torch.utils import wavio
+
+    status = audio_io.build_status()
+    if not status["built"]:
+        fail(f"ingest: the native audio library did not build: {status['why']}")
+    lib = audio_io._load()
+    out: dict = {"phase": "ingest", "host_cpu": host_cpu(), "library": status["library"],
+                 "wav": {"audio_s": INGEST_WAV_S, "rate": 44_100, "channels": 2, "bits": 16}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        sr = 44_100
+        wav = os.path.join(tmp, "REC_20260617_093000.wav")
+        # the right channel: the left 10 ms later, softer, with noise of its own
+        left = speech_like(INGEST_WAV_S, 40, sr)
+        right = 0.8 * np.roll(left, sr // 100) + np.random.default_rng(41).normal(
+            0, 0.01, len(left)).astype(np.float32)
+        wavio.write_wav(wav, np.stack([left, right], axis=1), sr)
+        minutes = INGEST_WAV_S / 60.0
+        calls = []
+        decode = audio_io.decode
+        audio_io.decode = lambda *a: calls.append(a) or decode(*a)
+        try:
+            native_ms, native = host_ms(lambda: ingest.load_audio(wav))
+        finally:
+            audio_io.decode = decode
+        if len(calls) != INGEST_REPS:
+            fail(f"ingest: load_audio took the native decoder {len(calls)} of {INGEST_REPS} times")
+
+        def plain():
+            samples, rate = wavio.read_wav_mono(wav)
+            return frontend.resample_host(samples, rate, 16_000)
+
+        plain_ms, ref = host_ms(plain)
+        err = float(np.abs(native - ref).max()) if native.shape == ref.shape else math.inf
+        if not err <= INGEST_WAV_GATE:
+            fail(f"ingest: native WAV decode vs reader + resample_host: shapes {native.shape} "
+                 f"{ref.shape}, max |diff| {err} > {INGEST_WAV_GATE}")
+        with open(wav, "rb") as f:
+            data = f.read()
+        n = lib.aptpu_wav_out_size(data, len(data), 16_000)
+        buf = np.empty(n, np.float32)
+        ptr = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        rate, channels, bits = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
+        entry = {
+            "aptpu_wav_info": host_ms(lambda: lib.aptpu_wav_info(
+                data, len(data), ctypes.byref(rate), ctypes.byref(channels),
+                ctypes.byref(bits)))[0],
+            "aptpu_wav_out_size": host_ms(lambda: lib.aptpu_wav_out_size(data, len(data),
+                                                                         16_000))[0],
+            "aptpu_decode_wav": host_ms(lambda: lib.aptpu_decode_wav(data, len(data), 16_000,
+                                                                     ptr, n))[0],
+        }
+        mono_ms, (mono, _) = host_ms(lambda: wavio.read_wav_mono(wav))
+        # the C entry alone, into a buffer of the size it returned; the
+        # binding calls it twice (a size query that resamples, then the fill)
+        binding_ms, rs = host_ms(lambda: audio_io.resample(mono, sr, 16_000))
+        rs_ptr = rs.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        mono_ptr = mono.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        entry["aptpu_resample"], _ = host_ms(lambda: lib.aptpu_resample(
+            mono_ptr, len(mono), sr, 16_000, rs_ptr, len(rs)))
+        resample_host_ms, _ = host_ms(lambda: frontend.resample_host(mono, sr, 16_000))
+        np.testing.assert_array_equal(buf, native)
+        out["wav"].update({
+            "load_audio_native_ms": native_ms, "reader_plus_resample_host_ms": plain_ms,
+            "max_abs_err": err, "gate": INGEST_WAV_GATE, "samples_out": int(len(native)),
+            "entry_ms": entry, "python_reader_ms": mono_ms, "resample_binding_ms": binding_ms,
+            "resample_host_ms": resample_host_ms,
+            "ms_per_audio_min": {
+                **{k: v / minutes for k, v in entry.items()},
+                "load_audio_native": native_ms / minutes,
+                "reader_plus_resample_host": plain_ms / minutes,
+                "python_reader": mono_ms / minutes, "resample_binding": binding_ms / minutes,
+                "resample_host": resample_host_ms / minutes},
+        })
+
+        mstat = media.build_status()
+        lines = [out]
+        launches: dict = {}
+        if not mstat["headers"]:
+            lines.append({"phase": "media", "built": False, "why": mstat["why"]})
+            return lines, launches
+        if not mstat["built"]:
+            fail(f"ingest: the libav headers are present ({mstat['headers_at']}) but the media "
+                 f"library failed: {mstat['why']}")
+        media_line, launches = phase_ingest_media(dev, tr, counters, tmp, mstat)
+        lines.append(media_line)
+        return lines, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_ingest_media(dev, tr, counters, tmp: str, mstat: dict) -> tuple[dict, dict]:
+    """The media half of ``phase_ingest``, where the library built."""
+    from audio_processor_tpu_torch.integrations.gemini import GeminiClient
+    from audio_processor_tpu_torch.integrations.notion import NotionClient
+    from audio_processor_tpu_torch.native import audio_io, media
+    from audio_processor_tpu_torch.pipeline import ingest
+    from audio_processor_tpu_torch.pipeline.diarize import Diarizer
+    from audio_processor_tpu_torch.pipeline.meeting import MeetingProcessor, build_failure_result
+    from audio_processor_tpu_torch.runtime.job_engine import JobEngine
+    from audio_processor_tpu_torch.utils import wavio
+
+    sr = 44_100
+    minutes = INGEST_M4A_S / 60.0
+    out: dict = {"phase": "media", "built": True, "headers_at": mstat["headers_at"],
+                 "library": mstat["library"], "m4a": {"audio_s": INGEST_M4A_S, "rate": sr}}
+    speech = speech_like(INGEST_M4A_S, 42, sr)
+    twin = os.path.join(tmp, "twin.wav")
+    wavio.write_wav(twin, speech, sr)
+    m4a = os.path.join(tmp, "REC_20260618_100000.m4a")
+    encode_ms, _ = host_ms(lambda: media.encode_m4a(speech, sr, m4a), reps=1)
+    decode_ms, got = host_ms(lambda: media.decode(m4a)[0])
+    prefix_ms, _ = host_ms(lambda: media.decode(m4a, max_samples=30 * 16_000)[0])
+    info_ms, info = host_ms(lambda: media.media_info(m4a))
+    gates = twin_gates(ingest.load_audio(twin), got)
+    if not all(gates.values()) or info["codec"] != "aac":
+        fail(f"ingest: the .m4a decode fails its WAV twin's gates: {gates} {info}")
+    out["m4a"].update({
+        "entry_ms": {"aptpu_encode_m4a": encode_ms, "aptpu_decode_media": decode_ms,
+                     "aptpu_decode_media_prefix_30s": prefix_ms, "aptpu_media_info": info_ms},
+        "ms_per_audio_min": {"aptpu_encode_m4a": encode_ms / minutes,
+                             "aptpu_decode_media": decode_ms / minutes,
+                             "aptpu_decode_media_prefix": prefix_ms / 0.5},
+        "twin_gates": gates, "info": info,
+    })
+
+    # the transcribe cell from the .m4a's path, tokens held to the array's
+    run = tr._run_decode
+    seen = record_decodes(tr)
+    try:
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        from_path = tr.transcribe(m4a)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = {"transcribe": read_counts(counters, (), "ingest m4a transcribe")}
+        path_tokens = list(seen)
+        seen.clear()
+        tr.transcribe(got)
+        array_tokens = list(seen)
+    finally:
+        tr._run_decode = run
+    check_segments(from_path, len(got) / 16_000, "ingest m4a transcribe")
+    equal = bool(path_tokens) and len(path_tokens) == len(array_tokens) and all(
+        np.array_equal(a, b) for a, b in zip(path_tokens, array_tokens))
+    if not equal:
+        fail("ingest: transcribe(.m4a path) decoded other tokens than transcribe(array)")
+    out["transcribe"] = {"model": f"{tr.cfg.name} (random weights)", "wall_s": path_s,
+                         "rtf_x": from_path["rtf_x"], "decodes": len(path_tokens),
+                         "tokens_equal_array_call": True, "launches": launches["transcribe"]}
+
+    # one 2 min meeting .m4a through the 9 stages
+    rng = np.random.default_rng(SERVE_JOB_SEEDS[0])
+    f0s = (float(rng.uniform(95, 120)), float(rng.uniform(150, 185)),
+           float(rng.uniform(220, 270)), float(rng.uniform(320, 378)))
+    meeting, _ = make_meeting(rng, f0s, INGEST_JOB_S)
+    job_m4a = os.path.join(tmp, "REC_20260619_140000.m4a")
+    media.encode_m4a(audio_io.resample(meeting, 16_000, sr), sr, job_m4a)
+    prompts, notion_calls = [], []
+    proc = MeetingProcessor(
+        transcriber=dataclasses.replace(tr, max_new_tokens=MESH_PATH_TOKENS,
+                                        tokenizer=LetterTokenizer()),
+        diarizer=Diarizer.bundled(device=dev),
+        gemini=GeminiClient(api_key="k", http=fake_gemini_http(prompts)),
+        notion=NotionClient(token="t", database_id="db", http=fake_notion_http(notion_calls),
+                            batch_pause_s=0),
+    )
+    engine = JobEngine(max_workers=1)
+    try:
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        engine.create_job("m4a", file_id=job_m4a)
+        engine.submit("m4a", lambda ctx: proc.process(ctx, job_m4a),
+                      failure_result=build_failure_result)
+        while True:
+            st = engine.get_job_status("m4a")
+            if st["status"] in ("completed", "failed", "cancelled"):
+                break
+            if time.perf_counter() - t0 > 600:
+                fail("ingest: the .m4a job still runs after 600 s")
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        launches["job"] = read_counts(counters, (), "ingest m4a job")
+        stages = engine.store.get("m4a").get("stage_timings") or {}
+    finally:
+        engine.shutdown(wait=True)
+    res = st.get("result") or {}
+    if not (st["status"] == "completed" and res.get("success")
+            and res.get("diarizer") == "bundled-synthetic"
+            and res.get("notion_page_id") == "page-7" and set(stages) == set(SERVE_STAGES)):
+        fail(f"ingest: the .m4a job ended {st['status']}: {st.get('error')} {sorted(stages)}")
+    out["job"] = {"audio_s": INGEST_JOB_S, "max_new_tokens": MESH_PATH_TOKENS, "wall_s": job_s,
+                  "decode_stage_s": stages["Decoding audio..."],
+                  "stage_s": stages, "segments": len(res["segments"]),
+                  "drive_filename": res.get("drive_filename"), "launches": launches["job"]}
+    return out, launches
+
+
 DIARIZE_MEETING_S = 1800.0
 DIARIZE_SLAB = 128  # the Diarizer's max_batch
 
@@ -3114,6 +3397,12 @@ def main(argv: list[str] | None = None) -> None:
                      counters=[cross_attention_int4_stacked]))
     emit(phase_bench(dev, tr, bs=32, n_timed=3, profile=False, decoder="int4-self-int8-w8",
                      counters=[cross_attention_int4_stacked]))
+    ingest_lines, ingest_launches = phase_ingest(dev, tr, [log_mel, cross_attention_int4_stacked])
+    for line in ingest_lines:
+        emit(line)
+    for run, counts in ingest_launches.items():
+        kernels["log_mel"][f"launches_m4a_{run}"] = counts["log_mel"]
+        kernels["cross_attn_int4"][f"launches_m4a_{run}"] = counts["cross_attention_int4_stacked"]
     del tr
     torch.cuda.empty_cache()
     emit(phase_transcribe_words(dev, [log_mel, cross_attention_int4_stacked], card))

@@ -113,8 +113,8 @@ def test_resample_same_rate_is_identity():
 
 def test_wav_at_other_rates_resamples_in_process(tmp_path):
     """A 44.1 kHz WAV decodes in-process to what the JAX frontend's
-    resampler gives for the same samples (JAX's ingest prefers its native
-    resampler, which the port does not have)."""
+    resampler gives for the same samples (both packages' ingest take their
+    native resampler, a windowed sinc of the same taps)."""
     x = np.random.default_rng(3).normal(0, 0.2, 44_100 + 17).astype(np.float32)
     path = str(tmp_path / "a.wav")
     wavio.write_wav(path, x, 44_100)

@@ -43,7 +43,8 @@ def test_every_port_module_imports_without_jax():
                      "training.pytree_io", "training.train_step", "training.checkpoint",
                      "training.diarization_trainer", "training.embedding_trainer",
                      "parallel.controller", "parallel.mesh", "parallel.multihost",
-                     "runtime.services", "serve"):
+                     "runtime.services", "serve", "native.build", "native.audio_io",
+                     "native.media", "pipeline.ingest"):
             assert pkg.__name__ + "." + name in names, name
         leaked = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -90,3 +91,32 @@ def test_port_sources_name_no_jax_import():
                 p = os.path.join(dirpath, f)
                 bad += [(p, n) for n in _imported_names(p) if _blocked(n)]
     assert not bad, bad
+
+
+def test_port_names_no_path_into_the_jax_package_native_module():
+    """The port builds its own copies of the C++ sources: no file of it
+    (Python, C++, CUDA) names the JAX package's ``native`` directory."""
+    root = os.path.join(REPO, "audio_processor_tpu_torch")
+    bad = []
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        for f in files:
+            if f.endswith((".py", ".cc", ".cu", ".cuh")):
+                p = os.path.join(dirpath, f)
+                if "audio_processor_tpu/native" in open(p, encoding="utf-8").read():
+                    bad.append(p)
+    assert not bad, bad
+
+
+def test_port_builds_only_its_own_sources():
+    from audio_processor_tpu_torch.native import build as native_build
+    from audio_processor_tpu_torch.ops.kernels import build as kernel_build
+
+    port = os.path.join(REPO, "audio_processor_tpu_torch")
+    assert str(native_build.SRC) == os.path.join(port, "native")
+    assert str(kernel_build.CSRC) == os.path.join(port, "csrc")
+    assert native_build.BUILD_DIR == kernel_build.BUILD_DIR
+    assert sorted(p.name for p in native_build.SRC.glob("*.cc")) == ["audio_io.cc",
+                                                                      "media_decode.cc"]
+    for name in ("audio_io", "media_decode"):
+        assert native_build.library_path(name).parent == native_build.BUILD_DIR

@@ -5,9 +5,9 @@ package's, unchanged).  Its variants of kernel B's function on one layer of
 the stacked int4 cache, BB batch rows a block:
 
   v32      the production body on grid (B,): kernel B (csrc/cross_attn_int4.cu)
-  a        the BB rows walked in turn, the next row's K and V prefetched into
-           L2 meanwhile: P2 ``int4_rows(bb=BB, joint=False)``
-  b-e      a warp group a row, the BB rows' max and sum sharing each barrier:
+  a        the BB rows walked in turn, the next row's time chunk copied into
+           shared memory meanwhile: P2 ``int4_rows(bb=BB, joint=False)``
+  b-e      a warp group a row, each on barriers of its own:
            P2 ``int4_rows(bb=BB, joint=True)``.  On the TPU, b batches the
            softmax chain, c the products (dot_general), d and e feed the
            matrix unit block-diagonal q and P; they compute one function, and

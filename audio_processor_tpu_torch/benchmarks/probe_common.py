@@ -30,6 +30,10 @@ PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 # exact functions take kernel B's; a bf16 or p8 rounding can flip where the
 # card's expf differs from torch's by an ulp
 EXACT_TOL, QUANT_TOL = 5e-4, 2e-3
+# int-to-float conversions a clock an SM (the CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table, compute capability 9.0): v3.1's
+# byte-wise unpack converts every nibble with one
+I2F_PER_CLOCK_SM = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,7 @@ class Variant:
     plain: Callable       # its plain version, the same arguments
     tol: float | None     # gate against the plain version; None: bit-equal
     stream: tuple         # (bb, joint) of the stream floor it is compared with
+    i2f: bool = False     # an int-to-float a nibble (v3.1): bounded by those too
 
 
 def _kernel_b(q, k, v, l):
@@ -79,7 +84,7 @@ def variants(probe: str, bb: int = 8) -> dict[str, Variant]:
         return {
             "v3.1": Variant("v3.1", f"{V32}:117 (fast_unpack=False)", "int4_rows",
                             "P2 int4_rows(unpack=byte, bb=1)", "int4", (f32, f32),
-                            *_rows(unpack="byte"), EXACT_TOL, (1, False)),
+                            *_rows(unpack="byte"), EXACT_TOL, (1, False), i2f=True),
             "v3.2": Variant("v3.2", f"{V32}:117 (fast_unpack=True)", "cross_attention_int4_stacked",
                             KERNEL_B, "int4", (f32, f32), _kernel_b, _kernel_b_plain, EXACT_TOL,
                             (1, False)),
@@ -284,6 +289,28 @@ def bound_ms(v: Variant, batch: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def max_sm_clock_hz() -> float | None:
+    """The card's maximum SM clock as nvidia-smi gives it (None without)."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60)
+    try:
+        return float(proc.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        return None
+
+
+def i2f_bound_ms(batch: int) -> float | str:
+    """The byte-wise unpack's least time by its conversions: one a valid
+    nibble of K and V (2 B H Dh VALID) at I2F_PER_CLOCK_SM a clock on every
+    SM of the card at its maximum SM clock."""
+    clock = max_sm_clock_hz()
+    if clock is None:
+        return "not measured (no SM clock from nvidia-smi)"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * batch * H * DH * VALID / (I2F_PER_CLOCK_SM * sms * clock) * 1e3
+
+
 def sdpa_call(data: dict, cache: str):
     """One PyTorch call for the same attention (the yardstick, never used by
     the port): SDPA on layer 0's K/V dequantised to bf16 in time order,
@@ -332,6 +359,8 @@ def measure(v: Variant, data: dict, steps: int, floors: dict) -> dict:
                    stream_share="not measured (cpu)")
         return res
     res["call_ms"] = device_call_ms(lambda layer: v.call(q, k, vc, layer))
+    if v.i2f:
+        res["i2f_bound_ms"] = i2f_bound_ms(batch)
     if "k4" not in data:
         res.update(stream_ms="not measured (no int4 cache)", stream_share="not measured")
         return res
@@ -349,7 +378,8 @@ def line(res: dict) -> str:
     def num(x):
         return f"{x:.5f}" if isinstance(x, float) else str(x)
 
+    i2f = f" (I2F bound {num(res['i2f_bound_ms'])} ms)" if "i2f_bound_ms" in res else ""
     return (f"{res['label']:10s} {res['step_ms']:9.4f} ms / {L}-layer step   "
             f"{num(res['call_ms'])} ms a call (device)   bound {res['bound_ms']:.5f} ms "
-            f"({res['bound_by']})   stream_share {num(res['stream_share'])}   "
+            f"({res['bound_by']}){i2f}   stream_share {num(res['stream_share'])}   "
             f"H100: {res['counterpart']}")

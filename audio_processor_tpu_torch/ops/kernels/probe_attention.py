@@ -9,8 +9,8 @@ kernel B does (v3.2) or kernel #3's (``i8_f32``) run those kernels
 ``csrc/cross_attn_probes.cu`` through the wrappers here:
 
 * ``probe_stream`` (P1): the stream-only floor, #8 ``s``.  Reads every K/V
-  byte of the layer with ``int4_rows``' loads and reduces them to the JAX
-  probe's checksum (``probe_stream_reference``), bit for bit.
+  byte of the layer in 16-byte loads and reduces them to the JAX probe's
+  checksum (``probe_stream_reference``), bit for bit.
 * ``int4_rows`` (P2): the exact int4 function, f32 products on CUDA cores,
   BB batch rows a block: v3.1 (``unpack="byte"``), #8 a
   (``joint=False``) and b-e (``joint=True``), #9 ``i4_bf16`` (``bf16``).
@@ -18,6 +18,11 @@ kernel B does (v3.2) or kernel #3's (``i8_f32``) run those kernels
   as exact int32 sums by dp4a: #7 ``mxu`` and #9 ``i4_mxu_kv``
   (``cache="int4"``), ``i8_mxu_kv`` (``cache="int8"``), ``i8_mxu_k``
   (``cache="int8", pv="f32"``).
+
+P1 and P2 split the packed time axis across blocks (a chunk of columns a
+block, as kernel B does) and combine the chunks in the same launch, in
+chunk order: each block counts its partial on a per-group counter, and the
+group's last block waits for the count.
 
 Each wrapper takes q (B, 1, H, 64) float32 (K's scale folded in), a stacked
 cache and ``layer``, as ``cross_attention_int4_stacked`` does, and returns
@@ -171,25 +176,40 @@ def _library() -> ctypes.CDLL:
     lib = build.load("cross_attn_probes")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.probe_stream_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.int4_rows_launch.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+    lib.int4_rows_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, i,
+                                     i, p]
     lib.int8_dot_launch.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p]
-    for fn in (lib.probe_stream_launch, lib.int4_rows_launch, lib.int8_dot_launch):
+    lib.probe_chunk_columns.argtypes = [i, i, i]
+    for fn in (lib.probe_stream_launch, lib.int4_rows_launch, lib.int8_dot_launch,
+               lib.probe_chunk_columns):
         fn.restype = ctypes.c_int
     return lib
 
 
-# per (device index, stream): P1's (row group) tickets, zeroed once when made
-# (every launch leaves them at 0), and its per-(row, head) sums
-_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# P2's bf16 instantiation launches a (row, head)'s chunks as one cluster, at
+# most 8 blocks (the portable cluster size)
+MAX_CLUSTER_CHUNKS = 8
+# per (device index, stream, kernel): the kernel's zeroed counters (every
+# launch leaves them at 0) and its per-chunk workspace, grown when a call
+# needs more
+_SCRATCH: dict[tuple[int, int, str], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _stream_scratch(q: torch.Tensor, stream: int, n_counters: int, n_work: int):
-    key = (q.get_device(), stream)
+def _chunks(cols: int, stream: bool, bb: int, rows_at_once: int) -> int:
+    """Blocks along the time axis for ``cols`` packed columns: the source's
+    chunk width for P1 (``stream``) or P2 at ``bb`` rows a block,
+    ``rows_at_once`` of them at once."""
+    width = _library().probe_chunk_columns(int(stream), bb, rows_at_once)
+    return -(-cols // width)
+
+
+def _scratch(q: torch.Tensor, stream: int, kernel: str, n_counters: int, n_work: int, dtype):
+    key = (q.get_device(), stream, kernel)
     counters, work = _SCRATCH.get(key, (None, None))
     if counters is None or counters.numel() < n_counters:
         counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
     if work is None or work.numel() < n_work:
-        work = torch.empty(n_work, dtype=torch.int32, device=q.device)
+        work = torch.empty(n_work, dtype=dtype, device=q.device)
     _SCRATCH[key] = counters, work
     return counters, work
 
@@ -241,8 +261,8 @@ def probe_stream(q: torch.Tensor, k4_all: torch.Tensor, v4_all: torch.Tensor, la
                  bb: int = 1, joint: bool = False) -> torch.Tensor:
     """The stream-only floor (#8 ``s``) on layer ``layer`` of the stacked
     int4 cache: the checksum of ``probe_stream_reference``, shaped like q.
-    ``bb`` rows a block, walked in turn (``joint=False``) or a warp group
-    each (``joint=True``), as ``int4_rows`` reads them."""
+    ``bb`` rows and one time chunk a block, the rows walked in turn
+    (``joint=False``) or a warp group each (``joint=True``)."""
     if q.device.type == "cpu":
         return probe_stream_reference(q, k4_all, v4_all, layer)
     _device("probe_stream", q)
@@ -250,12 +270,16 @@ def probe_stream(q: torch.Tensor, k4_all: torch.Tensor, v4_all: torch.Tensor, la
     b, h, k_ptr, v_ptr = _layer_args("probe_stream", q, k4_all, v4_all, layer,
                                      (DH, half), (half, DH))
     _check_bb("probe_stream", b, bb)
+    if h > 32:
+        raise ValueError(f"probe_stream: at most 32 heads (a lane each in the combine), not {h}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters, work = _stream_scratch(q, stream, b // bb, b * h)
+    rows_at_once = bb if joint else 1
+    counters, work = _scratch(q, stream, "probe_stream", b // bb,
+                              b * h * _chunks(half, True, bb, rows_at_once), torch.int32)
     rc = _library().probe_stream_launch(k_ptr, v_ptr, out.data_ptr(), work.data_ptr(),
-                                        counters.data_ptr(), b, h, DH, half, bb,
-                                        bb if joint else 1, stream)
+                                        counters.data_ptr(), b, h, DH, half, bb, rows_at_once,
+                                        stream)
     _raise_rc("probe_stream", rc)
     probe_stream.launches += 1
     return out
@@ -271,8 +295,10 @@ def int4_rows(q: torch.Tensor, k4_all: torch.Tensor, v4_all: torch.Tensor, layer
     f32 products on CUDA cores, ``bb`` batch rows a block: nibbles by
     ``unpack`` "byte" (an int-to-float each, v3.1) or "packed" (kernel B's
     magic number); the rows walked in turn (``joint=False``, #8 a) or a
-    warp group each sharing the softmax's barriers (``joint=True``, #8 b-e);
-    ``bf16`` rounds q and P to bf16 first (#9 ``i4_bf16``)."""
+    warp group each (``joint=True``, #8 b-e);
+    ``bf16`` rounds q and P to bf16 first (#9 ``i4_bf16``), P with the row's
+    global max, which a row and head's chunks exchange as one cluster: at
+    most ``MAX_CLUSTER_CHUNKS`` chunks."""
     if q.device.type == "cpu":
         return int4_rows_reference(q, k4_all, v4_all, layer, valid_len=valid_len, bf16=bf16)
     _device("int4_rows", q)
@@ -284,11 +310,19 @@ def int4_rows(q: torch.Tensor, k4_all: torch.Tensor, v4_all: torch.Tensor, layer
     if (unpack, bb, joint, bf16) not in INT4_ROWS_VARIANTS:
         raise ValueError(f"int4_rows: no instantiation for unpack={unpack!r}, bb={bb}, "
                          f"joint={joint}, bf16={bf16}")
+    rows_at_once = bb if joint else 1
+    chunks = _chunks((valid_len + 1) // 2, False, bb, rows_at_once)
+    if bf16 and chunks > MAX_CLUSTER_CHUNKS:
+        raise ValueError(f"int4_rows: bf16 takes at most {MAX_CLUSTER_CHUNKS} chunks (one cluster), "
+                         f"not {chunks} for valid_len {valid_len}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _library().int4_rows_launch(q.data_ptr(), k_ptr, v_ptr, out.data_ptr(), b, h, DH, half,
-                                     valid_len, 1.0 / math.sqrt(DH), int(unpack == "byte"), bb,
-                                     bb if joint else 1, int(bf16), stream)
+    counters, work = _scratch(q, stream, "int4_rows", b // bb * h, b * h * chunks * (DH + 2),
+                              torch.float32)
+    rc = _library().int4_rows_launch(q.data_ptr(), k_ptr, v_ptr, out.data_ptr(), work.data_ptr(),
+                                     counters.data_ptr(), b, h, DH, half, valid_len,
+                                     1.0 / math.sqrt(DH), int(unpack == "byte"), bb,
+                                     rows_at_once, int(bf16), stream)
     _raise_rc("int4_rows", rc)
     int4_rows.launches += 1
     return out

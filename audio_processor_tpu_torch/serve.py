@@ -76,17 +76,23 @@ def main(argv: list[str] | None = None) -> None:
     )
     services = build_services()
     controller = services.controller
-    if controller is not None and not controller.is_leader:
-        from .parallel import multihost
-
-        controller.follow()  # until rank 0 stops
-        multihost.shutdown()
-        return
-    try:
+    if controller is None:
         build_app(services).run(host=args.host, port=args.port)
+        return
+    from .parallel import multihost
+
+    # every rank leaves the process group before it exits: a gloo group
+    # still up at interpreter exit can abort the process (SIGABRT)
+    try:
+        if controller.is_leader:
+            try:
+                build_app(services).run(host=args.host, port=args.port)
+            finally:
+                controller.stop()
+        else:
+            controller.follow()  # until rank 0 stops
     finally:
-        if controller is not None:
-            controller.stop()
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

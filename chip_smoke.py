@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --tp-only   # sharded serving alone, e.g. on a card per rank
+    python3 chip_smoke.py --tp-only       # sharded serving alone, e.g. on a card per rank
+    python3 chip_smoke.py --probes-only   # the build and kernel B's design probes alone
 
 Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc`` (one
 nvcc per source, all at once), holds each against its plain PyTorch version
@@ -34,7 +35,8 @@ the other ranks follow its calls until the stop message; the ``serve``
 phase runs the same three jobs in one process at that cap beside them).  Kernel B's design probes (#7, #8, #9): every variant
 of the three probes at their default batches held to its plain version,
 then driven as its probe drives it and timed beside its bound, the stream
-floor and SDPA.  The service (``serve``): ``build_services`` at whisper-small
+floor and SDPA; a ``probes_split`` line sets P1's and P2's times beside their
+first design's (no split of the time axis) and their bounds.  The service (``serve``): ``build_services`` at whisper-small
 width with the bundled diarizer, ``create_app`` on a local port, three
 2 min meetings through the job API at once (all 9 stages, one job held to
 direct calls, kernels A and B counted), four concurrent ``/v1`` uploads
@@ -760,10 +762,25 @@ def phase_cross_attn_tp(dev, kernels) -> dict:
     return out
 
 
+# P1's and P2's device ms a call in their first design (one block a row
+# group and head, no split of the time axis), keyed by (label, batch, rows
+# a block): the probe entry points (benchmarks/kernel_v32_probe,
+# kernel_v34_probe, kernel_v4_probe) on an H100 80GB HBM3 at 700 W, the
+# mean of two runs; the floors ("s/bb1", "s/bb8_joint") as call_ms over
+# stream_share.  The probes phase prints them beside this run's times.
+PROBES_FIRST_DESIGN_MS = {
+    ("v3.1", 128, 1): 0.0986, ("a/bb1", 128, 1): 0.0913, ("s/bb1", 128, 1): 0.0533,
+    ("a", 64, 8): 0.2238, ("b", 64, 8): 0.0589, ("c", 64, 8): 0.0589, ("d", 64, 8): 0.0589,
+    ("e", 64, 8): 0.0589, ("s", 64, 8): 0.1281, ("s/bb8", 64, 8): 0.1281,
+    ("s/bb8_joint", 64, 8): 0.0327, ("s/bb1", 64, 1): 0.0309, ("i4_bf16", 64, 1): 0.0723,
+}
+
+
 def phase_probes(dev, kernels) -> dict:
     """Kernel B's design probes (#7, #8, #9) at their default batches: every
     variant held to its plain version on layers 0 and 11 (exact functions
-    5e-4, bf16 and int8-quantised ones 2e-3, the stream floor bit-equal),
+    5e-4, bf16 and int8-quantised ones 2e-3, the stream floor bit-equal at
+    every rows a block it is timed at),
     then driven as its probe drives it (12 layers a step, the counts zeroed
     just before and read just after) and timed by the device a call, beside
     its byte bound, its plain version, the stream floor at its rows a block
@@ -792,6 +809,14 @@ def phase_probes(dev, kernels) -> dict:
                 errs[x] = pc.gate(v, data)
             except AssertionError as exc:
                 fail(f"probes {probe} B={batch}: {exc}")
+        # P1 at every rows a block it is timed at, bit-equal to its plain version
+        for bb, joint in sorted({v.stream for v in table.values()}):
+            for layer in (0, pc.L - 1):
+                got = pa.probe_stream(data["q"], data["k4"], data["v4"], layer, bb=bb, joint=joint)
+                if not torch.equal(got, pa.probe_stream_reference(data["q"], data["k4"], data["v4"],
+                                                                  layer)):
+                    fail(f"probes {probe} B={batch}: P1 at bb={bb}, joint={joint}, layer {layer} "
+                         "is not bit-equal to its plain version")
         lib = time_ms(pc.sdpa_call(data, "int4"), iters=10)
         zero_counts(by_name.values())
         floors: dict = {}
@@ -823,6 +848,22 @@ def phase_probes(dev, kernels) -> dict:
     if not all(launches[c.__name__] for c in new):
         fail(f"probes: a kernel of the path never launched: {launches}")
     out["launches"] = launches
+    # P1 and P2 split the time axis across blocks: each instantiation's
+    # time in its first design beside this run's and its bound
+    split = [{"kernel": name, "label": r["label"], "batch": r["batch"], "bb": r["bb"],
+              "first_design_ms": PROBES_FIRST_DESIGN_MS.get((r["label"], r["batch"], r["bb"])),
+              "call_ms": r["call_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+              **{k: r[k] for k in ("i2f_bound_ms",) if k in r}}
+             for name in ("probe_stream", "int4_rows") for r in rows[name]]
+    for probe in ("v32", "v34", "v4"):
+        batch = out[probe]["batch"]
+        for key, ms in out[probe]["stream_floor_ms"].items():
+            bb = int(key[2:].split("_")[0])
+            split.append({"kernel": "probe_stream", "label": f"s/{key}", "batch": batch, "bb": bb,
+                          "first_design_ms": PROBES_FIRST_DESIGN_MS.get((f"s/{key}", batch, bb)),
+                          "call_ms": ms, "bound_ms": pc.bound_ms(pc.variants("v34")["s"], batch)[0],
+                          "bound_by": "bytes"})
+    emit({"phase": "probes_split", "card": card_line(), "variants": split})
 
     def entry(name, label, replaces):
         row = next(r for r in rows[name] if r["label"] == label)
@@ -831,6 +872,7 @@ def phase_probes(dev, kernels) -> dict:
             replaces=replaces, launches=launches[name], max_abs_err=worst[name],
             ms=row["call_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None if name == "probe_stream" else row["library_ms"],
+            **{k: row[k] for k in ("i2f_bound_ms",) if k in row},
             shape=f"{label} at B={row['batch']}: q (B, 1, 12, 64) f32 vs a layer of the stacked "
                   f"cache (12, B, 12, ., {pc.TPAD // 2}) int4x2",
             variants=[{k: r[k] for k in ("probe", "label", "counterpart", "replaces", "batch", "bb",
@@ -3292,6 +3334,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--tp-only", action="store_true",
                     help="run only transcribe_tp and the single-card transcription it is "
                          "held to (on a machine with a card per rank: the NCCL worlds)")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="run only the build (its SASS gates) and the probes phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU", 2)
@@ -3353,6 +3397,14 @@ def main(argv: list[str] | None = None) -> None:
                                      "count": torch.cuda.device_count()}})
         return
     kernels: dict[str, dict] = {}
+    if args.probes_only:
+        emit(phase_probes(dev, kernels))
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        print(card, flush=True)
+        emit({"kernels": list(kernels.values())})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     emit(phase_log_mel(dev, kernels))
     emit(phase_cross_attn(dev, kernels))
     emit(phase_cross_attn_int8(dev, kernels))

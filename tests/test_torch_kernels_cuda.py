@@ -457,35 +457,53 @@ def _probe_caches(dev, seed, b, valid, h=12, n_layers=2, tpad=1536):
 
 
 # (bb, unpack, joint, bf16): v3.1 and i4_bf16 at bb=1 (as their probes run
-# them), a and b-e at bb 1 and 8; exact variants are held to kernel B's
-# 5e-4, bf16 to 2e-3 (one bf16 rounding of P can flip where the card's expf
-# and torch's differ by an ulp)
+# them), every bb of ROW_BLOCKS with its rows in turn (a) and, past 1,
+# jointly (b-e); exact variants are held to kernel B's 5e-4, bf16 to 2e-3
+# (one bf16 rounding of P can flip where the card's expf and torch's differ
+# by an ulp)
 _INT4_ROWS_CASES = [(1, "byte", False, False), (1, "packed", False, True),
-                    (1, "packed", False, False), (8, "packed", False, False),
+                    (1, "packed", False, False), (2, "packed", False, False),
+                    (2, "packed", True, False), (4, "packed", False, False),
+                    (4, "packed", True, False), (8, "packed", False, False),
                     (8, "packed", True, False)]
+# valid lengths (P2 splits the packed time axis in chunks of 128 or 256
+# columns): one time; 129 (65 even and 64 odd times: the halves end on
+# different columns); inside a chunk (700: 350 of each); exactly on a chunk
+# boundary (512: 256 of each, whole chunks); the JAX probes' 1500
+_PROBE_VALID = (1, 129, 700, 512, 1500)
 
 
 @pytest.mark.parametrize("b", [8, 64])
 @pytest.mark.parametrize("bb,unpack,joint,bf16", _INT4_ROWS_CASES)
 def test_int4_rows_kernel_matches_plain(dev, b, bb, unpack, joint, bf16):
+    """P2 at every valid length of _PROBE_VALID within its gate; a call of
+    another grid in between leaves the counters at 0, so a repeat is equal."""
     from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
 
-    for valid in (1500, 129):
+    for valid in _PROBE_VALID:
         q, k4, v4, _, _ = _probe_caches(dev, b + bb + valid, b, valid)
         before = pa.int4_rows.launches
-        out = pa.int4_rows(q, k4, v4, 1, valid_len=valid, unpack=unpack, bb=bb, joint=joint,
-                           bf16=bf16)
+        kw = dict(unpack=unpack, bb=bb, joint=joint, bf16=bf16)
+        out = pa.int4_rows(q, k4, v4, 1, valid_len=valid, **kw)
+        other = pa.int4_rows(q[:2].contiguous(), k4[:, :2].contiguous(), v4[:, :2].contiguous(), 0,
+                             valid_len=1536 - valid, bf16=bf16)
+        again = pa.int4_rows(q, k4, v4, 1, valid_len=valid, **kw)
         torch.cuda.synchronize()
-        assert pa.int4_rows.launches == before + 1
+        assert pa.int4_rows.launches == before + 3
         ref = pa.int4_rows_reference(q, k4, v4, 1, valid_len=valid, bf16=bf16)
         assert (out - ref).abs().max().item() <= (2e-3 if bf16 else 5e-4)
+        assert torch.equal(again, out)
+        ref = pa.int4_rows_reference(q[:2], k4[:, :2], v4[:, :2], 0, valid_len=1536 - valid,
+                                     bf16=bf16)
+        assert (other - ref).abs().max().item() <= (2e-3 if bf16 else 5e-4)
 
 
 @pytest.mark.parametrize("b", [8, 64])
-@pytest.mark.parametrize("bb,joint", [(1, False), (8, False), (8, True)])
+@pytest.mark.parametrize("bb,joint", [(1, False), (2, False), (2, True), (4, False), (4, True),
+                                      (8, False), (8, True)])
 def test_probe_stream_kernel_equals_plain(dev, b, bb, joint):
     """The stream floor's checksum is bit-equal to its plain version, and
-    its tickets are left at 0 (a repeat, after a call of another grid, is
+    its counters are left at 0 (a repeat, after a call of another grid, is
     bit-equal too)."""
     from audio_processor_tpu_torch.ops.kernels import probe_attention as pa
 

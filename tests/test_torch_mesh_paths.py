@@ -20,6 +20,7 @@ import datetime
 import functools
 import multiprocessing
 import os
+import queue
 import shutil
 import sqlite3
 import tempfile
@@ -473,6 +474,10 @@ def _controller_rank(rank, store, results, fail_on, first):
     ctl = Controller(_mesh(1), {"primary": _Summer(rank, fail_on)})
     if not ctl.is_leader:
         ctl.follow()
+        # leave the world before exiting: a gloo group still up at
+        # interpreter exit can abort the process (SIGABRT, "terminate called
+        # without an active exception"), as it did under load
+        dist.destroy_process_group()
         results.put((rank, "followed"))
         return
     t = ctl.proxy("primary")
@@ -486,6 +491,7 @@ def _controller_rank(rank, store, results, fail_on, first):
     seen.append(t.transcribe(np.arange(4, dtype=np.float32), scale=2.0,
                              progress=lambda f: seen.append(("progress", f))))
     ctl.stop()
+    dist.destroy_process_group()
     results.put((rank, seen))
 
 
@@ -499,13 +505,20 @@ def _run_controller_world(fail_on=(), first="value_error"):
     try:
         for p in procs:
             p.start()
-        for p in procs:
-            p.join(timeout=90)
-        codes = [p.exitcode for p in procs]
+        # each rank's one result, read while the ranks run (a rank that ends
+        # the world puts none), then the exits
         got = {}
-        while not results.empty():
-            rank, value = results.get()
-            got[rank] = value
+        deadline = time.monotonic() + 120
+        while len(got) < len(procs) and time.monotonic() < deadline:
+            try:
+                rank, value = results.get(timeout=1.0)
+                got[rank] = value
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs) and results.empty():
+                    break
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
         return codes, got
     finally:
         for p in procs:

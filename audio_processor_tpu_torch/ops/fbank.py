@@ -28,6 +28,10 @@ def hz_to_htk_mel(f):
     return 1127.0 * np.log(1.0 + np.asarray(f, np.float64) / 700.0)
 
 
+def htk_mel_to_hz(m):
+    return 700.0 * (np.exp(np.asarray(m, np.float64) / 1127.0) - 1.0)
+
+
 @functools.lru_cache(maxsize=8)
 def htk_mel_filterbank(
     n_mels: int = 80,

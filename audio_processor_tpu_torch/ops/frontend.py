@@ -1,4 +1,11 @@
-"""Audio frontend: silence trim (host numpy) and the Whisper log-mel.
+"""Audio frontend: resample, silence trim and the Whisper log-mel.
+
+The silence trim has two halves, as in the JAX package: the host trim
+(``trim_silence_host``, numpy) and the device trim (``silence_mask``, the
+per-hop keep mask computed where the audio lives, and
+``gather_kept_intervals``, which concatenates the kept intervals there);
+``mask_to_intervals`` merges the small mask's gaps on the host between
+the two, so both trims cut the same regions.
 
 The log-mel is numerically the contract Whisper weights expect: hann(400),
 hop 160, 80/128 slaney-scale mel bins, log10 -> per-window peak-8 clamp ->
@@ -238,8 +245,71 @@ def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Silence removal (host numpy; copies of the JAX frontend's host helpers)
+# Silence removal: the device trim (plain PyTorch, where the audio lives) and
+# the host trim (numpy; copies of the JAX frontend's host helpers)
 # ---------------------------------------------------------------------------
+
+def silence_mask(
+    audio: torch.Tensor,
+    frame_length: int = 400,
+    hop: int = 160,
+    threshold_db: float = -40.0,
+    pad_frames: int = 25,
+) -> torch.Tensor:
+    """Per-hop boolean keep mask: frame RMS above (row peak dB +
+    threshold_db), dilated by pad_frames (0.25 s at the default hop) so
+    word onsets and offsets survive.  audio (..., n) float32 -> (...,
+    max(n // hop, 1)) bool on audio's device; the JAX frontend's
+    ``silence_mask`` (``frontend.py:243``).
+
+    frame_length/hop are fixed at the Whisper STFT geometry (400/160),
+    which ``frame_signal``'s block slicing is built on; other values are
+    refused.  The peak and the dilation are taken per leading-dim row, so
+    a batch does not bleed across rows.
+    """
+    if (frame_length, hop) != (N_FFT, HOP_LENGTH):
+        raise ValueError(
+            f"silence_mask supports only the Whisper frame geometry "
+            f"({N_FFT}/{HOP_LENGTH}); got {frame_length}/{hop}"
+        )
+    n_frames = max(audio.shape[-1] // hop, 1)
+    half = frame_length // 2
+    frames = frame_signal(F.pad(audio, (half, half)), n_frames)
+    rms = torch.sqrt(torch.mean(frames * frames, dim=-1) + 1e-12)
+    db = 20.0 * torch.log10(rms + 1e-12)
+    keep = db > (db.amax(dim=-1, keepdim=True) + threshold_db)
+    if pad_frames > 0:
+        kernel = torch.ones((1, 1, 2 * pad_frames + 1), dtype=torch.float32, device=keep.device)
+        x = keep.to(torch.float32).reshape(-1, 1, keep.shape[-1])  # a conv row per lead row
+        keep = F.conv1d(x, kernel, padding=pad_frames).reshape(keep.shape) > 0.5
+    return keep
+
+
+def gather_kept_intervals(
+    audio: torch.Tensor,
+    starts: torch.Tensor,
+    cum_ends: torch.Tensor,
+    n_out: int,
+) -> torch.Tensor:
+    """Concatenate kept intervals where ``audio`` lives into a zero-padded
+    (..., n_out) buffer: the device half of the silence trim, so the big
+    waveform never goes to the host, only the small per-hop mask does
+    (the JAX frontend's ``gather_kept_intervals``, ``frontend.py:346``).
+
+    starts (K,) is each interval's first sample in ``audio``; cum_ends
+    (K,) the cumulative kept samples, cum_ends[-1] the total.  The tables
+    are int32 as the callers build them, padded to a static K by repeating
+    the last start with a plateau in cum_ends, which is an empty interval
+    here.  Indexing is int64.
+    """
+    starts = starts.to(device=audio.device, dtype=torch.int64)
+    cum = cum_ends.to(device=audio.device, dtype=torch.int64)
+    j = torch.arange(n_out, dtype=torch.int64, device=audio.device)
+    i = torch.searchsorted(cum, j, right=True).clamp(0, starts.shape[0] - 1)
+    prev = torch.where(i > 0, cum[(i - 1).clamp(min=0)], 0)
+    idx = (starts[i] + (j - prev)).clamp(0, audio.shape[-1] - 1)
+    return audio[..., idx].masked_fill(j >= cum[-1], 0)
+
 
 def trim_silence_host(
     audio: np.ndarray,

@@ -51,11 +51,8 @@ from .transcribe import _f32_to_i16
 
 logger = logging.getLogger(__name__)
 
-# the JAX package's bundled checkpoints, read in place as data files
-ASSETS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "audio_processor_tpu", "assets",
-)
+# the bundled checkpoints: this package's copy of the JAX package's assets
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 
 
 @dataclass

@@ -8,8 +8,8 @@ defect: registered nowhere, references a nonexistent attribute —
 SURVEY.md appendix).
 
 The port's copy of the JAX package's ``server/app.py``.  The web UI's
-templates and static files are data, read in place from the JAX
-package's ``webui/`` directory (the port imports nothing of that package).
+templates and static files are the port's own copy of that package's
+``webui/`` directory, byte for byte, in this package's ``webui/``.
 """
 from __future__ import annotations
 
@@ -24,8 +24,7 @@ from .web import App, Blueprint, Request, Response, jsonify
 
 logger = logging.getLogger(__name__)
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-WEBUI_DIR = os.path.join(_REPO_ROOT, "audio_processor_tpu", "webui")
+WEBUI_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "webui")
 TEMPLATE_DIR = os.path.join(WEBUI_DIR, "templates")
 STATIC_DIR = os.path.join(WEBUI_DIR, "static")
 

@@ -48,7 +48,16 @@ state: without the libav headers one ``media`` line says so, with them a
 failed build fails the run, and a 4 min .m4a (``encode_m4a``) is gated
 against its WAV twin, the ``transcribe`` cell runs from its path (tokens
 equal to the decoded array's) and a 2 min meeting .m4a runs the 9 stages
-at 96 tokens, kernels A and B counted.  Word timestamps (``transcribe_words``): the
+at 96 tokens, kernels A and B counted.  Config 2's frontend
+(``device_frontend``, after ingest): 10 min of 44.1 kHz audio, config 2's
+own signal and a recording whose pauses reach the trim's cut, through the
+host chain (native resample, ``trim_silence_host``, int16 windows, kernel
+A) and the device chain (int16 to the card, ``resample``,
+``silence_mask``, the mask's intervals on the host,
+``gather_kept_intervals``, kernel A), each timed (median of 3) with the
+device chain's stages by CUDA events; the card's mask held to the CPU's,
+the gather bit-equal to the host concatenation, kernel A to the plain
+log-mel in float64, kernel A counted.  Word timestamps (``transcribe_words``): the
 ``transcribe`` workload with word_timestamps, the hallucination filter and
 the int8 self cache, its teacher-forced pass, host chain and DTW (the C++
 function against its numpy twin on the phase's own costs) timed apart,
@@ -2604,6 +2613,262 @@ def phase_ingest_media(dev, tr, counters, tmp: str, mstat: dict) -> tuple[dict, 
     return out, launches
 
 
+# config 2 of the JAX benchmarks (``benchmarks/run_configs.py:78-187``):
+# resample + silence trim + log-mel on 10 min of 44.1 kHz mono, host chain
+# against device chain
+DF_AUDIO_S = 600.0
+DF_SR = 44_100
+DF_REPS = 3
+DF_MASK_GATE_DB = 0.01  # a keep flag may differ card vs CPU only this near the cut
+DF_MEL_GATE = 1e-4
+DF_STAGES = ("upload", "resample", "mask", "mask_to_host", "intervals", "gather", "log_mel")
+
+
+def config2_signal() -> np.ndarray:
+    """Config 2's own signal (``run_configs.py:100-105``, seed 0): a 160 Hz
+    tone gated at 0.9 Hz, amplitude 0.3, over a noise floor of 0.01 (27 dB
+    under the peak, so the -40 dB cut keeps every frame)."""
+    rng = np.random.default_rng(0)
+    tt = np.arange(int(DF_AUDIO_S * DF_SR)) / DF_SR
+    return (np.sin(2 * np.pi * 160 * tt) * (np.sin(2 * np.pi * 0.9 * tt) > -0.4) * 0.3
+            + rng.normal(0, 0.01, len(tt))).astype(np.float32)
+
+
+def paused_recording(seed: int = 51) -> np.ndarray:
+    """10 min at 44.1 kHz: ``speech_like`` bursts of 2-8 s between pauses of
+    0.5-4 s at a Gaussian floor of 1e-4; a pause longer than 1.5 s (the
+    1 s minimum gap and 0.25 s of padding each side) is cut.  Seed 51 keeps
+    56 intervals, so the table padded to K = 64 ends in 8 empty ones."""
+    rng = np.random.default_rng(seed)
+    n = int(DF_AUDIO_S * DF_SR)
+    out = rng.normal(0, 1e-4, n).astype(np.float32)
+    pos, k = int(rng.uniform(0.5, 4.0) * DF_SR), 0
+    while pos < n:
+        burst = speech_like(rng.uniform(2.0, 8.0), seed * 1000 + k, DF_SR)[: n - pos]
+        out[pos: pos + len(burst)] += burst
+        pos += len(burst) + int(rng.uniform(0.5, 4.0) * DF_SR)
+        k += 1
+    return out
+
+
+def pow2_windows(n_samples: int) -> int:
+    """Config 2's bucket: 30 s windows, rounded up to a power of two."""
+    from audio_processor_tpu_torch.ops import frontend
+
+    return 1 << max(0, -(-n_samples // frontend.N_SAMPLES) - 1).bit_length()
+
+
+def host_frontend(audio44: np.ndarray, dev) -> dict:
+    """Config 2's ``preprocess`` (``run_configs.py:122-139``) on the port:
+    the native resampler and ``trim_silence_host`` on the host, int16
+    windows in a power-of-two bucket to the card, kernel A; synced on the
+    mel's sum."""
+    from audio_processor_tpu_torch.native import audio_io
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    trimmed, _ = frontend.trim_silence_host(audio_io.resample(audio44, DF_SR, 16_000))
+    b = pow2_windows(len(trimmed))
+    chunks = np.zeros((b, frontend.N_SAMPLES), np.float32)
+    chunks.reshape(-1)[: len(trimmed)] = trimmed
+    ci16 = np.clip(chunks * 32767.0, -32768, 32767).astype(np.int16)
+    windows = torch.from_numpy(ci16).to(dev).to(torch.float32) / 32768.0
+    return {"sum": float(log_mel(windows).sum()), "n_kept": len(trimmed), "b": b}
+
+
+def device_frontend(audio44_i16: np.ndarray, dev) -> dict:
+    """Config 2's ``preprocess_device`` (``run_configs.py:154-172``) on the
+    port: the raw int16 to the card, resample and keep mask there, the mask
+    to the host for ``mask_to_intervals``, the padded int32 table back,
+    ``gather_kept_intervals`` into the bucket's windows, kernel A; synced
+    on the mel's sum, as the host chain is (config 2's JAX variant pulls
+    the whole mel back instead).  Each stage ends at a CUDA event."""
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    events = []
+
+    def mark():
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    t0 = time.perf_counter()
+    mark()
+    x = torch.from_numpy(audio44_i16).to(dev).to(torch.float32) / 32768.0
+    mark()
+    a = frontend.resample(x, DF_SR, 16_000)
+    mark()
+    mask = frontend.silence_mask(a)
+    mark()
+    mask_np = mask.cpu().numpy()
+    mark()
+    n16 = int(a.shape[-1])
+    bounds = frontend.mask_to_intervals(mask_np, n16, min_gap_frames=100) or [(0, n16)]
+    lens = np.array([e - s for s, e in bounds], np.int64)
+    n_kept = int(lens.sum())
+    b = pow2_windows(n_kept)
+    k_pad = 1 << max(0, len(bounds) - 1).bit_length()
+    starts = np.full(k_pad, bounds[-1][0], np.int32)
+    cum = np.full(k_pad, n_kept, np.int32)
+    starts[: len(bounds)] = [s for s, _ in bounds]
+    cum[: len(bounds)] = np.cumsum(lens)
+    mark()
+    windows = frontend.gather_kept_intervals(
+        a, torch.from_numpy(starts).to(dev), torch.from_numpy(cum).to(dev),
+        b * frontend.N_SAMPLES).reshape(b, frontend.N_SAMPLES)
+    mark()
+    mel_sum = log_mel(windows).sum()
+    mark()
+    out = {"sum": float(mel_sum), "wall_s": time.perf_counter() - t0}
+    out["stages_ms"] = {name: e0.elapsed_time(e1)
+                        for name, e0, e1 in zip(DF_STAGES, events, events[1:])}
+    out.update(a=a, mask=mask, bounds=bounds, n_kept=n_kept, b=b, k_pad=k_pad, windows=windows)
+    return out
+
+
+def log_mel_f64(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """The plain log-mel's steps (``frontend.log_mel_spectrogram``) in
+    float64, on audio's device: gate 3's reference.  On config 2's 160 Hz
+    tone the float32 plain version's 400-term DFT sums cancel at the lowest
+    mel bin and land further from this than kernel A's four-step FFT does,
+    so the float32 plain version is printed beside it, not gated."""
+    import torch.nn.functional as F
+
+    from audio_processor_tpu_torch.ops import frontend
+
+    x = audio.to(torch.float64)
+    n_frames = x.shape[-1] // frontend.HOP_LENGTH
+    half = frontend.N_FFT // 2
+    frames = F.pad(x[:, None], (half, half), mode="reflect")[:, 0].unfold(
+        -1, frontend.N_FFT, frontend.HOP_LENGTH)[:, :n_frames]
+    window = torch.hann_window(frontend.N_FFT, periodic=True, dtype=torch.float64,
+                               device=x.device)
+    power = torch.fft.rfft(frames * window).abs().square()
+    filters = torch.from_numpy(frontend.mel_filterbank(n_mels)).to(x.device, torch.float64)
+    log_spec = torch.log10(torch.clamp(power @ filters.T, min=1e-10))
+    log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+    return ((log_spec + 4.0) / 4.0).transpose(-1, -2)
+
+
+def frame_db64(a: np.ndarray) -> np.ndarray:
+    """Each ``silence_mask`` frame's level in dB, in float64."""
+    from audio_processor_tpu_torch.ops import frontend
+
+    x = torch.from_numpy(np.pad(a.astype(np.float64), (200, 200)))
+    frames = frontend.frame_signal(x, max(len(a) // frontend.HOP_LENGTH, 1))
+    return (20.0 * torch.log10(torch.sqrt((frames * frames).mean(-1) + 1e-12) + 1e-12)).numpy()
+
+
+def device_frontend_gates(res: dict, name: str) -> dict:
+    """Gates 1-3 of the device chain on one run's outputs: (1) the card's
+    keep mask equals ``silence_mask`` on the CPU on the same resampled
+    audio, save frames within 0.01 dB of the cut in float64 (and dilated
+    flags within pad_frames of such a frame); (2) the gathered windows are
+    bit-equal to a numpy concatenation of the kept intervals, zero past
+    them; (3) kernel A on them is within 1e-4 of the plain log-mel's steps
+    in float64 (``log_mel_f64``)."""
+    from audio_processor_tpu_torch.ops import frontend
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    a_np = res["a"].cpu().numpy()
+    a_cpu = torch.from_numpy(a_np)
+    raw_card = frontend.silence_mask(res["a"], pad_frames=0).cpu().numpy()
+    raw_cpu = frontend.silence_mask(a_cpu, pad_frames=0).numpy()
+    db = frame_db64(a_np)
+    margin = np.abs(db - (db.max() - 40.0))
+    raw_diff = np.flatnonzero(raw_card != raw_cpu)
+    if not (margin[raw_diff] <= DF_MASK_GATE_DB).all():
+        fail(f"device_frontend {name}: {len(raw_diff)} raw keep flags differ card vs CPU, "
+             f"margins {margin[raw_diff][:10].tolist()} dB from the cut > {DF_MASK_GATE_DB}")
+    dil_diff = np.flatnonzero(res["mask"].cpu().numpy() != frontend.silence_mask(a_cpu).numpy())
+    if len(dil_diff) and (not len(raw_diff) or (np.abs(dil_diff[:, None] - raw_diff[None, :])
+                                                .min(axis=1) > 25).any()):
+        fail(f"device_frontend {name}: {len(dil_diff)} keep flags differ card vs CPU away "
+             f"from the {len(raw_diff)} frames at the cut")
+    kept = np.concatenate([a_np[s:e] for s, e in res["bounds"]])
+    flat = res["windows"].reshape(-1).cpu().numpy()
+    if not (np.array_equal(flat[: len(kept)], kept) and not flat[len(kept):].any()):
+        fail(f"device_frontend {name}: the gather is not the host concatenation")
+    got = log_mel(res["windows"])
+    torch.cuda.synchronize()
+    exact = log_mel_f64(res["windows"])
+    plain = frontend.log_mel_spectrogram(res["windows"])
+    err = (got - exact).abs().max().item()
+    if not err <= DF_MEL_GATE:
+        fail(f"device_frontend {name}: kernel A vs the float64 plain log-mel {err} > {DF_MEL_GATE}")
+    plain_err = (plain - exact).abs().max().item()
+    vs_plain = (got - plain).abs().max().item()
+    del exact, plain
+    # printed, not gated: the host trim's intervals on the same 16 kHz audio
+    _, seconds = frontend.trim_silence_host(a_np)
+    host = [(round(s * 16_000), round(e * 16_000)) for s, e in seconds]
+    shift = (max(abs(p - q) for hb, db_ in zip(host, res["bounds"]) for p, q in zip(hb, db_))
+             / frontend.HOP_LENGTH if len(host) == len(res["bounds"]) else None)
+    return {"mask_flags_differing": int(len(raw_diff)), "mask_flags_differing_dilated":
+            int(len(dil_diff)), "mask_gate_db": DF_MASK_GATE_DB, "gather_bit_equal": True,
+            "log_mel_max_abs_err_vs_f64": err, "log_mel_gate": DF_MEL_GATE,
+            "plain_f32_max_abs_err_vs_f64": plain_err, "log_mel_max_abs_err_vs_plain_f32": vs_plain,
+            "intervals_equal_host_trim": host == res["bounds"],
+            "host_trim_intervals": len(host), "max_boundary_shift_frames": shift}
+
+
+def phase_device_frontend(dev, card: str) -> tuple[list[dict], dict]:
+    """Config 2 on the port at its full size, both chains on two signals:
+    config 2's own and ``paused_recording``, whose pauses reach the cut.
+    Each chain is timed as a median of 3 runs after a warm run (RTFx =
+    600 s over it); the device chain's stages by CUDA events; kernel A's
+    launches counted on each chain apart; gates 1-3 on the device chain's
+    last run (``device_frontend_gates``), gate 4: kernel A launched on it.
+    Returns (a line a signal, launches by chain)."""
+    import statistics
+
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+
+    lines, launches = [], {"device_frontend": 0, "host_frontend": 0}
+    for name, make in (("config2", config2_signal), ("paused", paused_recording)):
+        t_signal = time.perf_counter()
+        audio44 = make()
+        audio44_i16 = np.clip(audio44 * 32767.0, -32768, 32767).astype(np.int16)
+        out = {"phase": "device_frontend", "signal": name, "card": card, "audio_s": DF_AUDIO_S,
+               "rate": DF_SR, "sync": "scalar (the mel's sum) on both chains"}
+        chains = {}
+        for chain, fn, arg in (("host", host_frontend, audio44), ("device", device_frontend,
+                                                                     audio44_i16)):
+            zero_counts([log_mel])
+            fn(arg, dev)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 1e9  # by earlier phases, not the chain
+            walls, runs = [], []
+            for _ in range(DF_REPS):
+                t0 = time.perf_counter()
+                res = fn(arg, dev)
+                walls.append(time.perf_counter() - t0)
+                runs.append(res)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n = read_counts([log_mel], (), f"device_frontend {name} {chain}")["log_mel"]
+            launches[f"{chain}_frontend"] += n
+            med = statistics.median(walls)
+            chains[chain] = {"rtfx": DF_AUDIO_S / med, "median_s": med, "walls_s": walls,
+                             "peak_gb": peak, "held_at_start_gb": held,
+                             "peak_over_start_gb": peak - held, "windows": res["b"],
+                             "kept_share": res["n_kept"] / (DF_AUDIO_S * 16_000),
+                             "log_mel_launches": n}
+            if chain == "device":
+                chains[chain].update(
+                    intervals=len(res["bounds"]), k_pad=res["k_pad"],
+                    stages_ms={k: statistics.median(r["stages_ms"][k] for r in runs)
+                               for k in DF_STAGES})
+            del runs
+        out.update(chains)
+        out["gates"] = device_frontend_gates(res, name)
+        del res
+        out["seconds"] = time.perf_counter() - t_signal
+        lines.append(out)
+        torch.cuda.empty_cache()
+    return lines, launches
+
+
 DIARIZE_MEETING_S = 1800.0
 DIARIZE_SLAB = 128  # the Diarizer's max_batch
 
@@ -3457,6 +3722,11 @@ def main(argv: list[str] | None = None) -> None:
         kernels["cross_attn_int4"][f"launches_m4a_{run}"] = counts["cross_attention_int4_stacked"]
     del tr
     torch.cuda.empty_cache()
+    df_lines, df_launches = phase_device_frontend(dev, card)
+    for line in df_lines:
+        emit(line)
+    for path, n in df_launches.items():
+        kernels["log_mel"][f"launches_{path}"] = n
     emit(phase_transcribe_words(dev, [log_mel, cross_attention_int4_stacked], card))
     torch.cuda.empty_cache()
     serve, serve_launches = phase_serve(

@@ -108,6 +108,90 @@ def test_port_names_no_path_into_the_jax_package_native_module():
     assert not bad, bad
 
 
+def _constants_outside_docstrings(tree):
+    """Every string constant of a module's AST that is not a docstring
+    (the first statement of a module, class or function body)."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node
+
+
+def _jax_package_paths(source):
+    return [(node.lineno, node.value)
+            for node in _constants_outside_docstrings(ast.parse(source))
+            if node.value == "audio_processor_tpu" or "audio_processor_tpu/" in node.value]
+
+
+def test_port_names_no_path_into_the_jax_package():
+    """No port module builds a path into the JAX package: no string
+    constant other than a docstring (which cites ``file:line`` as prose)
+    equals the package's name or contains ``audio_processor_tpu/``."""
+    root = os.path.join(REPO, "audio_processor_tpu_torch")
+    bad = []
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        for f in files:
+            if f.endswith(".py"):
+                p = os.path.join(dirpath, f)
+                bad += [(p, line, v) for line, v in
+                        _jax_package_paths(open(p, encoding="utf-8").read())]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("source, found", [
+    ('X = os.path.join(ROOT, "audio_processor_tpu", "webui")\n', [(1, "audio_processor_tpu")]),
+    ('def f():\n    return "audio_processor_tpu/assets"\n', [(2, "audio_processor_tpu/assets")]),
+    ('"""Cites audio_processor_tpu/ops/frontend.py:243."""\n', []),
+    ('def f():\n    """See audio_processor_tpu/x.py:1."""\n', []),
+    ('X = "audio_processor_tpu_torch"\n', []),
+])
+def test_jax_package_path_check_sees_constants_not_docstrings(source, found):
+    assert _jax_package_paths(source) == found
+
+
+def _files_under(root):
+    out = set()
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        out |= {os.path.relpath(os.path.join(dirpath, f), root) for f in files}
+    return out
+
+
+@pytest.mark.parametrize("sub", ["webui", "assets"])
+def test_port_data_is_a_byte_equal_copy_of_the_jax_package_data(sub):
+    """The web UI and the bundled diarizer are data the port carries
+    itself: the same files as the JAX package's, byte for byte."""
+    port = os.path.join(REPO, "audio_processor_tpu_torch", sub)
+    jax_side = os.path.join(REPO, "audio_processor_tpu", sub)
+    names = _files_under(port)
+    assert names == _files_under(jax_side)
+    assert names  # the copy is there
+    for rel in sorted(names):
+        with open(os.path.join(port, rel), "rb") as a, open(os.path.join(jax_side, rel), "rb") as b:
+            assert a.read() == b.read(), rel
+
+
+def test_port_loads_its_own_bundled_diarizer(monkeypatch):
+    from audio_processor_tpu_torch.models.diarization import checkpoint as ckpt
+    from audio_processor_tpu_torch.pipeline import diarize
+
+    port = os.path.join(REPO, "audio_processor_tpu_torch")
+    assert diarize.ASSETS_DIR == os.path.join(port, "assets")
+    read, real = [], ckpt._read
+    monkeypatch.setattr(ckpt, "_read", lambda path: read.append(os.path.abspath(path)) or real(path))
+    d = diarize.Diarizer.bundled(device="cpu")
+    assert d is not None and d.provenance == "bundled-synthetic"
+    assert set(read) == {os.path.join(port, "assets", "diarizer_emb.npz"),
+                         os.path.join(port, "assets", "diarizer_seg.npz")}
+
+
 def test_port_builds_only_its_own_sources():
     from audio_processor_tpu_torch.native import build as native_build
     from audio_processor_tpu_torch.ops.kernels import build as kernel_build
@@ -120,3 +204,68 @@ def test_port_builds_only_its_own_sources():
                                                                       "media_decode.cc"]
     for name in ("audio_io", "media_decode"):
         assert native_build.library_path(name).parent == native_build.BUILD_DIR
+
+
+# JAX names with no counterpart by design (ROADMAP.md lists them): the
+# Pallas interpret switch, the functional nets' Params (the trainer's alias
+# too) and forward (the port has nn.Modules), JAX sharding specs,
+# model.attention (the port's masked_attention), a module logger, and the
+# Pallas mel kernel's own names (its port is kernel A, ops/kernels/log_mel.py's
+# log_mel)
+BY_DESIGN = {
+    "ops/pallas/decode_attention.py": {"interpret_requested"},
+    "ops/pallas/mel_kernel.py": {"log_mel_pallas", "FRAME_TILE", "HOP"},
+    "models/diarization/segmentation_tpu.py": {"Params", "forward"},
+    "models/diarization/segmentation.py": {"Params", "forward"},
+    "models/diarization/embedding.py": {"Params", "forward"},
+    "training/diarization_trainer.py": {"Params"},
+    "parallel/sharding.py": {"param_shardings"},
+    "parallel/mesh.py": {"data_sharding", "replicated"},
+    "models/whisper/model.py": {"attention"},
+    "training/checkpoint.py": {"logger"},
+}
+# the one module whose port has another name (besides ops/pallas -> ops/kernels)
+RENAMED = {"ops/pallas/mel_kernel.py": "ops/kernels/log_mel.py"}
+# names the port keeps in another module than JAX does
+MOVED = {"models/diarization/checkpoint.py": {
+    "load_cluster_threshold", "DECODE_META_KEYS", "load_decode_meta", "load_onset",
+    "synth_voice", "flatten_tree", "unflatten_tree", "load_diarizer_params"},
+    "ops/frontend.py": {"N_FREQS"}}
+
+
+def _public_names(path):
+    """Top-level functions, classes and assigned names not led by ``_``."""
+    names = set()
+    for node in ast.parse(open(path, encoding="utf-8").read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _jax_modules():
+    root = os.path.join(REPO, "audio_processor_tpu")
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = sorted(d for d in dirs if d not in ("__pycache__", "webui", "assets"))
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(dirpath, f), root).replace(os.sep, "/")
+
+
+@pytest.mark.parametrize("rel", list(_jax_modules()))
+def test_every_jax_public_name_has_a_port_counterpart(rel):
+    """By the AST, importing nothing: each public name of a JAX module is
+    in the port's module of the same path, in the module ``MOVED`` names,
+    or listed in ``BY_DESIGN``."""
+    port_rel = RENAMED.get(rel, rel.replace("ops/pallas/", "ops/kernels/"))
+    port = os.path.join(REPO, "audio_processor_tpu_torch", port_rel)
+    assert os.path.exists(port), port_rel
+    moved = {}
+    for mod, names in MOVED.items():
+        found = _public_names(os.path.join(REPO, "audio_processor_tpu_torch", mod))
+        moved.update({n: mod for n in names & found})
+    missing = _public_names(os.path.join(REPO, "audio_processor_tpu", rel)) - _public_names(port)
+    assert not missing - BY_DESIGN.get(rel, set()) - set(moved), sorted(missing)

@@ -634,6 +634,9 @@ def test_sse_subscriber_cap(monkeypatch):
 
 
 def test_webui_is_served_from_the_jax_package_data():
+    """The port serves the JAX package's web UI from its own byte-equal
+    copy, which lies inside the port (test_torch_isolation.py holds
+    every file of the copy to the JAX package's)."""
     engine = JobEngine(max_workers=1)
     try:
         app = app_mod.create_app(services.Services(engine=engine, processor=_Processor(None)),
@@ -641,8 +644,13 @@ def test_webui_is_served_from_the_jax_package_data():
         status, body, headers = call(app, "GET", "/")
         assert status == 200 and "<html" in body.lower()
         status, body, _ = call(app, "GET", "/static/js/app.js")
-        assert status == 200 and body
-        assert app_mod.WEBUI_DIR == japp.TEMPLATE_DIR.rsplit(os.sep, 1)[0]
+        jax_webui = japp.TEMPLATE_DIR.rsplit(os.sep, 1)[0]
+        with open(os.path.join(jax_webui, "static", "js", "app.js"), encoding="utf-8") as f:
+            assert status == 200 and body == f.read()
+        port = os.path.dirname(os.path.abspath(app_mod.__file__)).rsplit(os.sep, 1)[0]
+        assert os.path.commonpath([app_mod.WEBUI_DIR, port]) == port
+        assert app_mod.WEBUI_DIR == os.path.join(port, "webui")
+        assert not os.path.samefile(app_mod.WEBUI_DIR, jax_webui)
     finally:
         engine.shutdown(wait=False)
 

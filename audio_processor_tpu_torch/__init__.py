@@ -21,6 +21,8 @@ pipeline      Ingest, the ``Transcriber``, the ``Diarizer``, fusion and the
 integrations  Drive, PDF, Gemini, Notion and the credential store.
 server        The WSGI app: the job API and the OpenAI-compatible ``/v1``.
 utils         WAV I/O, timestamps, metrics, writers, constants.
+tools         The bundled diarizer's builder and the trained-checkpoint
+              parity gates (``python -m audio_processor_tpu_torch.tools.<name>``).
 """
 
 __version__ = "0.1.0"

@@ -9,10 +9,11 @@ the two, so both trims cut the same regions.
 
 The log-mel is numerically the contract Whisper weights expect: hann(400),
 hop 160, 80/128 slaney-scale mel bins, log10 -> per-window peak-8 clamp ->
-(x+4)/4.  ``log_mel_spectrogram`` here is the plain float32 PyTorch
-version of the JAX package's ``ops/frontend.py:139``; on the card the port
-runs the fused CUDA kernel in ``ops/kernels/log_mel.py`` instead, which
-computes the same function.
+(x+4)/4.  ``log_mel_spectrogram`` here is the plain PyTorch version
+(float32 but for its two DFT products, taken in float64) of the JAX
+package's ``ops/frontend.py:139``; on the card the port runs the fused
+CUDA kernel in ``ops/kernels/log_mel.py`` instead, which computes the
+same function.
 
 Precision: every matmul below must be full float32.  TF32 keeps ~3
 decimal digits, which is catastrophic in log space at quiet mel bins (the
@@ -105,7 +106,7 @@ def dft_bases(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
-# Log-mel spectrogram (plain PyTorch, float32)
+# Log-mel spectrogram (plain PyTorch; float64 DFT products)
 # ---------------------------------------------------------------------------
 
 def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
@@ -113,8 +114,9 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     -> (..., n_mels, n_samples // HOP_LENGTH) float32.
 
     Reflect-pad by n_fft//2, frame at hop 160, two matmuls against the
-    hann-folded bases, power, mel, log10, per-window peak-8 clamp, (x+4)/4
-    — the same steps as the JAX frontend (``frontend.py:139-180``).
+    hann-folded bases (in float64), power, mel, log10, per-window peak-8
+    clamp, (x+4)/4 — the same steps as the JAX frontend
+    (``frontend.py:139-180``); all but the two DFT products in float32.
     """
     lead = audio.shape[:-1]
     x = audio.reshape(-1, audio.shape[-1]).to(torch.float32)
@@ -122,12 +124,14 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     padded = F.pad(x[:, None, :], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0]
     frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]  # (B, nf, 400)
 
+    # the two DFT products in float64: in float32 their 400-term sums
+    # cancel at the lowest mel bins of a low tone (config 2's 160 Hz) and
+    # land 1e-4 from the same steps in float64, where JAX's land 1e-5
     cos_np, sin_np = dft_bases(N_FFT)
-    cos_b = torch.from_numpy(cos_np).to(x.device)
-    sin_b = torch.from_numpy(sin_np).to(x.device)
-    re = frames @ cos_b
-    im = frames @ sin_b
-    power = re * re + im * im  # (B, nf, 201)
+    frames = frames.to(torch.float64)
+    re = frames @ torch.from_numpy(cos_np).to(x.device, torch.float64)
+    im = frames @ torch.from_numpy(sin_np).to(x.device, torch.float64)
+    power = (re * re + im * im).to(torch.float32)  # (B, nf, 201)
     filters = torch.from_numpy(mel_filterbank(n_mels)).to(x.device)
     mel = power @ filters.T  # (B, nf, n_mels)
 

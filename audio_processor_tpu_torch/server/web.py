@@ -446,6 +446,10 @@ class App:
         self.static_dir = static_dir
         self.template_dir = template_dir
         self.config: dict[str, Any] = {}
+        # the dev server's loop: shutdown() and run() agree on it under the lock
+        self._server = None
+        self._stop_requested = False
+        self._serve_lock = threading.Lock()
 
     # -- registration -------------------------------------------------------
 
@@ -614,18 +618,33 @@ class App:
                     slots.release()
 
         with make_server(host, port, self, server_class=ThreadingWSGIServer) as srv:
+            # the server is published before its loop starts, so a
+            # shutdown() from here on stops the loop; one that came earlier
+            # left a request, and the loop never starts
+            with self._serve_lock:
+                stop, self._stop_requested = self._stop_requested, False
+                self._server = None if stop else srv
+            if stop:
+                logger.info("shutdown requested before serving on %s:%d", host, port)
+                return
             logger.info(
                 "serving on %s:%d (%d worker threads)", host, port, max_threads
             )
-            self._server = srv
             try:
                 srv.serve_forever()
             finally:
-                self._server = None
+                with self._serve_lock:
+                    self._server = None
 
     def shutdown(self) -> None:
         """Stop a run() loop started on another thread (test harnesses —
-        production fronts with gunicorn).  No-op when not serving."""
-        srv = getattr(self, "_server", None)
+        production fronts with gunicorn).  Called before the loop has
+        started (run() on a thread that has not reached it), it leaves a
+        request that the next run() takes: that run() closes its socket
+        and returns without serving."""
+        with self._serve_lock:
+            srv = self._server
+            if srv is None:
+                self._stop_requested = True
         if srv is not None:
             srv.shutdown()

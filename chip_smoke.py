@@ -76,7 +76,13 @@ turns equal).  Training (``train``): ``finetune-whisper`` at whisper-small
 width in float32 (step 0 held to the CPU), ``train-segmentation``,
 ``train-embedding`` and ``calibrate-alignment-heads --write``, each timed a
 step; ``--tp-only`` adds one sharded train step on dp1 x tp2 and dp2 x tp2
-held to one process.
+held to one process.  The bundled diarizer's builder and the parity tool
+(``bundled_diarizer``, last): ``tools/make_bundled_diarizer``'s held-out
+gates on the committed assets at its full settings (a failed gate ends
+the run), its two trainers for 20 steps at its batches (kernel A counted,
+the ``--from-cache`` reload bit-equal), and ``tools/verify_parity`` on a
+seeded Whisper case (the card's transcript equal to the CPU's, a changed
+text failing, ``main``'s records).
 Prints one JSON line per phase, the kernel table, the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 with no result line, when there is no card, when the port is not beside
@@ -3544,6 +3550,198 @@ def phase_train(dev, npz: str, work: str, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
+BD_TRAIN_STEPS = 20
+BD_TRIALS = 5  # the builder's own validation trials
+BD_SEEDED_MODEL = "test"  # the smallest preset convert-whisper and the Transcriber take
+BD_SEEDED_TRANSCRIBER = {"compute_dtype": "float32", "enable_fallback": False,
+                         "max_new_tokens": 16}
+
+
+def quiet(fn, *args, **kw):
+    """fn's result, its standard output kept out of the run's (the
+    builder prints a line a step and a trial); when fn raises, what it
+    printed goes to standard error and the exception on (a failed gate's
+    ``SystemExit`` ends the run)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kw)
+    except BaseException:
+        print(buf.getvalue(), file=sys.stderr, flush=True)
+        raise
+
+
+def write_rank_file(path: str, n_text: int) -> None:
+    """A tiktoken rank file covering every text id of a tiny vocab: the 256
+    bytes, then pairs (a space, a digit or a letter, then a letter)."""
+    import base64
+    import itertools
+
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    toks = [bytes([b]) for b in range(256)]
+    toks += [(a + b).encode() for a, b in itertools.product(" 0123456789" + letters, letters)]
+    with open(path, "wb") as f:
+        for rank, tok in enumerate(toks[:n_text]):
+            f.write(base64.b64encode(tok) + b" " + str(rank).encode() + b"\n")
+
+
+def phase_bundled_diarizer(dev, work: str) -> tuple[dict, dict]:
+    """The bundled diarizer's builder and the parity tool on the card.
+    (a) ``make_bundled_diarizer.validate`` on the port's committed assets
+    at the tool's settings (5 trials a split, the two 21 min meetings, the
+    assets' onset, threshold and decode knobs): a failed gate raises
+    ``SystemExit`` and ends the run; each split's median DER and
+    decomposition, host synthesis and ``diarize`` seconds, the count
+    accuracy, kernel A's launches.  (b) The builder's two trainers for 20
+    steps each at its batches (12; 32 crops, a bank of 32): ms a step,
+    peak GB, losses, kernel A's launches (one a segmentation step and one
+    for ``calibrate_onset``'s slab), then the ``--from-cache`` round trip,
+    leaves bit-equal.  (c) ``verify_parity`` on a seeded Whisper case at
+    the "test" preset's widths (an openai ``.pt`` through
+    ``convert-whisper``, a rank file covering its text ids, the expected
+    text from the CPU Transcriber): the card's transcript passes, a
+    changed text fails, and ``main`` records what it finds."""
+    from audio_processor_tpu_torch.models.whisper.config import get_config
+    from audio_processor_tpu_torch.models.whisper.decode import SpecialTokens
+    from audio_processor_tpu_torch.models.whisper.tokenizer import BPETokenizer
+    from audio_processor_tpu_torch.ops.kernels.decode_attention import cross_attention_int4_stacked
+    from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
+    from audio_processor_tpu_torch.pipeline.diarize import ASSETS_DIR, Diarizer
+    from audio_processor_tpu_torch.pipeline.ingest import load_audio
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+    from audio_processor_tpu_torch.tools import make_bundled_diarizer as tool
+    from audio_processor_tpu_torch.tools import verify_parity as vp
+    from audio_processor_tpu_torch.training import diarization_trainer as dt
+    from audio_processor_tpu_torch.training import embedding_trainer as et
+    from audio_processor_tpu_torch.utils import wavio
+
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "bundled_diarizer"}
+    launches: dict = {}
+    held_gb = torch.cuda.memory_allocated() / 1e9
+
+    # (a) the held-out gates on the committed assets
+    seg_path = os.path.join(ASSETS_DIR, Diarizer.BUNDLED_SEG)
+    emb_path = os.path.join(ASSETS_DIR, Diarizer.BUNDLED_EMB)
+    seg, _ = dt.load_params(seg_path, dev)
+    onset, decode = dt.load_onset(seg_path) or 0.5, dt.load_decode_meta(seg_path)
+    emb, _ = et.load_params(emb_path, dev)
+    thr = et.load_cluster_threshold(emb_path)
+    report: dict = {}
+    zero_counts([log_mel])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quiet(tool.validate, seg, onset, emb, thr, decode, trials=BD_TRIALS, report=report)
+    wall = time.perf_counter() - t0
+    launches["bundled_validate"] = read_counts([log_mel], (), "bundled_diarizer validate")["log_mel"]
+    out["validate"] = {
+        "assets": {"onset": onset, "cluster_threshold": thr, "decode": decode},
+        "trials": BD_TRIALS, "wall_s": wall, "gates_passed": True,
+        "splits": {name: {"median_der": sp["median"], "gate": sp["gate"], "ders": sp["ders"],
+                          **{f"{k}_median": float(np.median(sp[k]))
+                             for k in ("miss", "false_alarm", "confusion")},
+                          "speakers": [f"{h}/{r}" for h, r in zip(sp["hyp_speakers"],
+                                                                   sp["ref_speakers"])],
+                          "synth_s": sp["synth_s"], "diarize_s": sp["diarize_s"]}
+                   for name, sp in report["splits"].items()},
+        "count": report["count"], "launches_log_mel": launches["bundled_validate"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_gb_before": held_gb}
+    del seg, emb
+    torch.cuda.empty_cache()
+
+    # (b) a short build at the builder's widths and batches
+    rng = np.random.default_rng(20260817)  # the builder's training seed
+    build: dict = {}
+
+    def timed_training(module, train):
+        zero_counts([log_mel])
+        t0 = time.perf_counter()
+        with StepTimer(module, "train_step") as timer:
+            result = quiet(train)
+        wall = time.perf_counter() - t0
+        return result, {**timer.summary(), "wall_s": wall,
+                        "host_ms_per_step": 1e3 * (wall - sum(timer.ms) / 1e3) / BD_TRAIN_STEPS,
+                        "launches_log_mel": log_mel.launches}
+
+    (seg, seg_onset), build["segmentation"] = timed_training(
+        dt, lambda: tool.train_segmentation(rng, BD_TRAIN_STEPS, 12, device=dev))
+    emb, build["embedding"] = timed_training(
+        et, lambda: tool.train_embedding(rng, BD_TRAIN_STEPS, 32, n_bank=32, device=dev))
+    build["segmentation"].update(batch=12, calibrated_onset=seg_onset)
+    build["embedding"].update(batch=32, n_bank=32)
+    launches["bundled_train"] = build["segmentation"]["launches_log_mel"]
+    if launches["bundled_train"] != BD_TRAIN_STEPS + 1:
+        fail(f"bundled_diarizer: kernel A launched {launches['bundled_train']} times in "
+             f"{BD_TRAIN_STEPS} segmentation steps and calibrate_onset, not {BD_TRAIN_STEPS + 1}")
+    if not all(np.isfinite(part["losses"]).all() for part in build.values()):
+        fail(f"bundled_diarizer: training losses {build}")
+    cache = os.path.join(work, "bundled_cache")
+    quiet(tool._cache_candidates, cache, seg, seg_onset, emb)
+    seg2, onset2, emb2 = quiet(tool._load_candidates, cache, dev)
+    build["reload_bit_equal"] = (leaves_equal(seg, seg2) and leaves_equal(emb, emb2)
+                                 and onset2 == seg_onset)
+    if not build["reload_bit_equal"]:
+        fail("bundled_diarizer: the --from-cache reload differs from the trained pair")
+    out["build"] = build
+    del seg, seg2, emb, emb2
+    torch.cuda.empty_cache()
+
+    # (c) the parity tool's flow on a seeded Whisper case
+    pdir = os.path.join(work, "parity")
+    os.makedirs(pdir)
+    cfg = get_config(BD_SEEDED_MODEL)
+    params = perturbed_whisper_params(cfg, seed=16)
+    dims = {k: getattr(cfg, k) for k in ("n_mels", "n_audio_ctx", "n_audio_state", "n_audio_head",
+                                         "n_audio_layer", "n_vocab", "n_text_ctx", "n_text_state",
+                                         "n_text_head", "n_text_layer")}
+    pt, npz = os.path.join(pdir, "seeded.pt"), os.path.join(pdir, "seeded.npz")
+    ranks, wav = os.path.join(pdir, "seeded.tiktoken"), os.path.join(pdir, "speech.wav")
+    torch.save({"dims": dims, "model_state_dict": whisper_state_dict(params, cfg, "openai")}, pt)
+    write_rank_file(ranks, SpecialTokens.for_config(cfg).eot)
+    cli_run(["convert-whisper", pt, npz, "--tokenizer", ranks])
+    wavio.write_wav(wav, speech_like(10.0, 16), 16_000)
+    ref = Transcriber.from_npz(npz, tokenizer=BPETokenizer.from_tiktoken(ranks), device="cpu",
+                               **BD_SEEDED_TRANSCRIBER)
+    expected = ref.transcribe(load_audio(wav), remove_silence=False)["text"]
+    if not expected.strip():
+        fail("bundled_diarizer: the seeded Whisper case transcribes to no text on the CPU")
+    case = {"model_npz": npz, "tokenizer": ranks, "wav": wav, "expected_text": expected,
+            "transcriber": BD_SEEDED_TRANSCRIBER}
+    with open(os.path.join(pdir, "case-seeded.json"), "w") as f:
+        json.dump(case, f)
+    counters = [log_mel, cross_attention_int4_stacked]
+    zero_counts(counters)
+    try:
+        got = vp.check_transcript_case(os.path.join(pdir, "case-seeded.json"), dev)
+    except vp.ParityFailure as e:
+        fail(f"bundled_diarizer: the seeded Whisper case failed on the card: {e}")
+    launches["parity_seeded"] = read_counts(counters, (), "bundled_diarizer parity")
+    try:
+        vp.check_transcript_case(dict(case, expected_text=expected + " x"), dev)
+        fail("bundled_diarizer: a changed expected text passed the Whisper gate")
+    except vp.ParityFailure:
+        pass
+    records = {}
+    for name, argv in (("no_case", ["--out", os.path.join(work, "parity_none"), "--whisper", "tiny"]),
+                       ("seeded", ["--out", pdir, "--whisper", "seeded"])):
+        rc = quiet(vp.main, argv)
+        with open(os.path.join(argv[1], "PARITY_TORCH.json")) as f:
+            records[name] = {k: r["status"] for k, r in json.load(f).items()}
+        records[name]["rc"] = rc
+    if records != {"no_case": {"whisper:tiny": "skipped", "diarization": "skipped", "rc": 0},
+                   "seeded": {"whisper:seeded": "passed", "diarization": "skipped", "rc": 0}}:
+        fail(f"bundled_diarizer: verify_parity.main recorded {records}")
+    out["parity"] = {"model": f"{BD_SEEDED_MODEL} (seeded .pt through convert-whisper)",
+                     "expected_text": expected, "card_text": got["text"], "passed": True,
+                     "changed_text_failed": True, "main_records": records,
+                     "launches": launches["parity_seeded"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def _train_rank(rank, world, tp, port, backend, results, profile) -> None:
     """One rank of a train_tp world: the dry run's dp x tp step (the port's
     ``train_step.dryrun_multichip``), and the same step in this process
@@ -3740,12 +3938,20 @@ def main(argv: list[str] | None = None) -> None:
         emit(convert)
         train, train_launches = phase_train(dev, npz, work, card)
         emit(train)
+        torch.cuda.empty_cache()
+        bundled, bundled_launches = phase_bundled_diarizer(dev, work)
+        emit(bundled)
     for name, n in convert["transcribe"]["launches"].items():
         kernels["log_mel" if name == "log_mel" else "cross_attn_int4"]["launches_convert"] = n
     kernels["log_mel"]["launches_finetune"] = train_launches["finetune"]["log_mel"]
     kernels["log_mel"]["launches_train_segmentation"] = train_launches["train_segmentation"]["log_mel"]
     kernels["cross_attn_int4"]["launches_calibrate"] = (
         train_launches["calibrate"]["cross_attention_int4_stacked"])
+    for path in ("bundled_validate", "bundled_train"):
+        kernels["log_mel"][f"launches_{path}"] = bundled_launches[path]
+    kernels["log_mel"]["launches_parity_seeded"] = bundled_launches["parity_seeded"]["log_mel"]
+    kernels["cross_attn_int4"]["launches_parity_seeded"] = (
+        bundled_launches["parity_seeded"]["cross_attention_int4_stacked"])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": list(kernels.values())})

@@ -30,6 +30,26 @@ def test_plain_log_mel_matches_jax_and_pallas(rng, n_mels):
     np.testing.assert_allclose(ours, pallas, atol=1e-4)
 
 
+def _config2_window(seed):
+    """Config 2's signal (``benchmarks/run_configs.py:100-105``) made at
+    16 kHz: one 30 s window of a gated 160 Hz tone over noise ``seed``."""
+    tt = np.arange(frontend.N_SAMPLES) / frontend.SAMPLE_RATE
+    noise = np.random.default_rng(seed).normal(0, 0.01, len(tt))
+    return (np.sin(2 * np.pi * 160 * tt) * (np.sin(2 * np.pi * 0.9 * tt) > -0.4) * 0.3
+            + noise).astype(np.float32)[None]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_log_mel_matches_jax_on_config2_signal(seed):
+    """A low tone's lowest mel bins: float32 DFT sums there cancel and
+    missed JAX by up to 1.3e-4 before the products went to float64."""
+    audio = _config2_window(seed)
+    ours = frontend.log_mel_spectrogram(torch.from_numpy(audio)).numpy()
+    ref = np.asarray(jfrontend.log_mel_spectrogram(jnp.asarray(audio)))
+    assert ours.shape == ref.shape == (1, 80, frontend.N_FRAMES)
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
 def test_plain_log_mel_any_length_and_batch_dims(rng):
     """Any static length, any leading dims (the JAX frontend's contract)."""
     audio = rng.normal(0, 0.2, (2, 3, 16_000 * 3 + 77)).astype(np.float32)

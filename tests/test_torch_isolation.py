@@ -44,7 +44,8 @@ def test_every_port_module_imports_without_jax():
                      "training.diarization_trainer", "training.embedding_trainer",
                      "parallel.controller", "parallel.mesh", "parallel.multihost",
                      "runtime.services", "serve", "native.build", "native.audio_io",
-                     "native.media", "pipeline.ingest"):
+                     "native.media", "pipeline.ingest", "tools.make_bundled_diarizer",
+                     "tools.verify_parity", "tools.make_parity_case"):
             assert pkg.__name__ + "." + name in names, name
         leaked = [m for m in sys.modules
                   if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -269,3 +270,35 @@ def test_every_jax_public_name_has_a_port_counterpart(rel):
         moved.update({n: mod for n in names & found})
     missing = _public_names(os.path.join(REPO, "audio_processor_tpu", rel)) - _public_names(port)
     assert not missing - BY_DESIGN.get(rel, set()) - set(moved), sorted(missing)
+
+
+# the JAX repository's tools and their ports; the JAX verify_parity's REPO
+# is the directory it runs pytest in, where the port calls its gates in-process
+TOOLS = ("make_bundled_diarizer.py", "verify_parity.py", "make_parity_case.py")
+TOOLS_BY_DESIGN = {"verify_parity.py": {"REPO"}}
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_every_jax_tool_public_name_has_a_port_counterpart(name):
+    """By the AST: each public name of the JAX tool ``tools/<name>`` is in
+    the port's ``tools/<name>``."""
+    port = os.path.join(REPO, "audio_processor_tpu_torch", "tools", name)
+    missing = _public_names(os.path.join(REPO, "tools", name)) - _public_names(port)
+    assert not missing - TOOLS_BY_DESIGN.get(name, set()), sorted(missing)
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_port_tools_name_no_path_into_the_jax_package(name):
+    """No port tool reaches into the JAX package, its bundled assets
+    included, by a string constant or in its prose; the builder's
+    defaults read the port's own assets."""
+    with open(os.path.join(REPO, "audio_processor_tpu_torch", "tools", name), encoding="utf-8") as f:
+        source = f.read()
+    assert _jax_package_paths(source) == []
+    assert "audio_processor_tpu/" not in source and "audio_processor_tpu\"" not in source
+    if name == "make_bundled_diarizer.py":
+        from audio_processor_tpu_torch.pipeline.diarize import ASSETS_DIR
+        from audio_processor_tpu_torch.tools import make_bundled_diarizer as tool
+
+        assert tool.ASSETS_DIR == ASSETS_DIR == os.path.join(REPO, "audio_processor_tpu_torch",
+                                                             "assets")

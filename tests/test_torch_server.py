@@ -691,3 +691,25 @@ def test_kernel_libraries_build_and_open_once_across_threads(monkeypatch, tmp_pa
         th.join()
     assert builds == [("cross_attn_int4",)] and len(opened) == 1
     assert len(libs) == 8 and all(lib is libs[0] for lib in libs)
+
+
+@pytest.mark.parametrize("delay_s", [0.0, 0.2])
+def test_shutdown_right_after_run_starts_stops_the_loop(delay_s):
+    """``shutdown()`` as soon as ``run()`` is started on a thread (0 s: before
+    the loop exists, which left it serving forever; 0.2 s: once it serves):
+    the thread ends and the port is free again."""
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    app = App()
+    th = threading.Thread(target=app.run, kwargs=dict(host="127.0.0.1", port=port, max_threads=2),
+                          daemon=True)
+    th.start()
+    time.sleep(delay_s)
+    app.shutdown()
+    th.join(5)
+    assert not th.is_alive()
+    with socket.socket() as again:
+        again.bind(("127.0.0.1", port))

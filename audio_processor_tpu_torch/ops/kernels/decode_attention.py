@@ -11,9 +11,10 @@ C++), with the int4 cache format helpers and each kernel's plain version.
 * ``cross_attention_int4``: the same function on a single-layer cache
   (B, H, Dh, Tpad/2), launched through kernel B's library.  Replaces the
   TPU kernel ``cross_attention_int4`` (``decode_attention.py:277``).
-* ``cross_attention_int8`` (``csrc/cross_attn_int8.cu``): one layer of the
-  int8 kernel-layout cache, K (B, H, Dh, Tpad) and V (B, H, Tpad, Dh).
-  Replaces the TPU kernel ``cross_attention_int8``
+* Kernel #3, ``cross_attention_int8`` (``csrc/cross_attn_int8.cu``): one
+  layer of the int8 kernel-layout cache, K (B, H, Dh, Tpad) and V
+  (B, H, Tpad, Dh), split over 128-position chunks as kernel B splits its
+  packed columns.  Replaces the TPU kernel ``cross_attention_int8``
   (``decode_attention.py:83``).
 
 The int4 cache keeps the JAX package's byte layout so tests compare it
@@ -134,10 +135,10 @@ def _library() -> ctypes.CDLL:
 INT4_CHUNK = 64
 INT4_MAX_DH = 256
 INT4_MAX_HALF = 128 * INT4_CHUNK  # a chunk a thread in the combine
-# per (device index, stream): kernel B's (row, head) counters for its
-# last-block combine, zeroed once when made (every launch leaves them at 0),
-# and a decode step's (Tq=1) workspace of per-chunk partials; grown when a
-# call needs more
+# per (device index, stream): the (row, head) counters of kernel B's and
+# kernel #3's last-block combines, zeroed once when made (every launch
+# leaves them at 0), and a decode step's (Tq=1) workspace of per-chunk
+# partials; grown when a call needs more
 _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -296,11 +297,39 @@ def _library_int8() -> ctypes.CDLL:
     fn = lib.cross_attn_int8_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+# Kernel #3's time split: time positions a chunk (csrc/cross_attn_int8.cu kChunk)
+INT8_CHUNK = 128
+INT8_MAX_DH = 256
+INT8_MAX_TPAD = 128 * INT8_CHUNK  # a chunk a thread in the combine
+
+
+def check_int8_kernel_args(q: torch.Tensor, k8t: torch.Tensor, v8: torch.Tensor,
+                           valid_len: int) -> None:
+    """Raise ValueError for what kernel #3 does not take: q not contiguous
+    float32; caches not contiguous int8 of the matching shapes on q's
+    device, or not 16-byte aligned (the kernel copies 16 bytes at a time);
+    Dh not a power of two in [8, INT8_MAX_DH]; Tpad not a multiple of
+    INT8_CHUNK up to INT8_MAX_TPAD; valid_len outside [1, Tpad]."""
+    _check_q(q, "cross_attention_int8")
+    b, _, h, dh = q.shape
+    tpad = k8t.shape[-1]
+    _check_cache("k8t", k8t, q.device, (b, h, dh, tpad))
+    _check_cache("v8", v8, q.device, (b, h, tpad, dh))
+    if dh & (dh - 1) or not 8 <= dh <= INT8_MAX_DH or tpad % INT8_CHUNK or tpad > INT8_MAX_TPAD:
+        raise ValueError(f"kernel needs Dh a power of two in [8, {INT8_MAX_DH}] and Tpad a "
+                         f"multiple of {INT8_CHUNK} up to {INT8_MAX_TPAD} (Dh={dh}, Tpad={tpad})")
+    if (k8t.data_ptr() | v8.data_ptr()) % 16:
+        raise ValueError("kernel needs 16-byte aligned caches (it copies 16 bytes at a time)")
+    if not 1 <= valid_len <= tpad:
+        raise ValueError(f"valid_len {valid_len} outside [1, {tpad}]")
 
 
 def cross_attention_int8(
@@ -311,27 +340,30 @@ def cross_attention_int8(
     (B, H, Dh, Tpad) and v8 (B, H, Tpad, Dh).  Returns (B, Tq, H, Dh)
     float32 in integer units.
 
-    CUDA tensors: the kernel, or an error; the decoder passes the layer's
-    view ``cache.cross_k[l]`` in place.  CPU tensors: the plain version.
+    CUDA tensors: the kernel, or an error (``check_int8_kernel_args``); the
+    decoder passes the layer's view ``cache.cross_k[l]`` in place.  CPU
+    tensors: the plain version.
     """
     if q.device.type == "cpu":
         return cross_attention_int8_reference(q, k8t, v8, valid_len=valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_int8: unsupported device {q.device}")
-    _check_q(q, "cross_attention_int8")
+    check_int8_kernel_args(q, k8t, v8, valid_len)
     b, tq, h, dh = q.shape
     tpad = k8t.shape[-1]
-    _check_cache("k8t", k8t, q.device, (b, h, dh, tpad))
-    _check_cache("v8", v8, q.device, (b, h, tpad, dh))
-    if dh % 4 or tpad % 4 or dh > 1024:
-        raise ValueError(f"kernel needs Dh and Tpad divisible by 4, Dh <= 1024 (Dh={dh}, Tpad={tpad})")
-    if not 1 <= valid_len <= tpad:
-        raise ValueError(f"valid_len {valid_len} outside [1, {tpad}]")
+    lib = _library_int8()
     out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _library_int8().cross_attn_int8_launch(
-        q.data_ptr(), k8t.data_ptr(), v8.data_ptr(), out.data_ptr(), b, tq, h, dh, tpad,
-        valid_len, 1.0 / math.sqrt(dh), stream,
+    # each live chunk's (max, sum, acc[Dh]) per query row, combined in the
+    # launch; the counters and a decode step's workspace are kernel B's
+    # (one stream runs its launches in order)
+    chunks = -(-valid_len // INT8_CHUNK)
+    counters, work = _scratch(q, stream, b * h, b * h * chunks * (dh + 2))
+    if tq > 1:  # a prefill's partials: not kept between calls
+        work = torch.empty(b * h * tq * chunks * (dh + 2), dtype=torch.float32, device=q.device)
+    rc = lib.cross_attn_int8_launch(
+        q.data_ptr(), k8t.data_ptr(), v8.data_ptr(), out.data_ptr(), work.data_ptr(),
+        counters.data_ptr(), b, tq, h, dh, tpad, valid_len, 1.0 / math.sqrt(dh), stream,
     )
     if rc != 0:
         raise RuntimeError(f"cross_attn_int8 kernel launch failed: CUDA error {rc}")

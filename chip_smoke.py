@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --tp-only       # sharded serving alone, e.g. on a card per rank
     python3 chip_smoke.py --probes-only   # the build and kernel B's design probes alone
+    python3 chip_smoke.py --int8-only     # the build, kernel #3 and its bench line alone
 
 Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc`` (one
 nvcc per source, all at once), holds each against its plain PyTorch version
@@ -32,7 +33,12 @@ turns held to the single card's, the 30 min meeting timed) and
 ``serve_tp`` (``build_services`` under APTPU_DISTRIBUTED=1: rank 0 serves
 three 2 min meetings and a word-granularity ``/v1`` request over HTTP,
 the other ranks follow its calls until the stop message; the ``serve``
-phase runs the same three jobs in one process at that cap beside them).  Kernel B's design probes (#7, #8, #9): every variant
+phase runs the same three jobs in one process at that cap beside them).  Kernel #3
+(``cross_attn_int8``): held to its plain version at B 8-128 x Tq 1-55, the
+valid_len edges and the int8 extremes, its combine's counters back at 0,
+its SASS free of I2F, timed at the decode and prefill shapes beside its
+bounds and SDPA; ``--int8-only`` runs that and the int8-kernel bench line
+alone.  Kernel B's design probes (#7, #8, #9): every variant
 of the three probes at their default batches held to its plain version,
 then driven as its probe drives it and timed beside its bound, the stream
 floor and SDPA; a ``probes_split`` line sets P1's and P2's times beside their
@@ -112,8 +118,15 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line on stdout; on stderr, the seconds since start and the
+    line's phase, so a slow run shows where its time went."""
     print(json.dumps(obj), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s: {obj.get('phase', '-')}",
+          file=sys.stderr, flush=True)
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -147,6 +160,14 @@ def sass_i2f(build, name: str) -> dict | str:
         fn, body = part.split("\n", 1)
         counts[fn.strip()] = sum("I2F" in ln for ln in body.splitlines())
     return counts
+
+
+def ptxas_lines(logs: dict[str, str]) -> dict[str, list[str]]:
+    """Per built source, ptxas's lines naming each kernel, its registers and
+    its spills."""
+    return {k: [ln.strip() for ln in v.splitlines()
+                if any(w in ln for w in ("Function properties", "registers", "spill"))]
+            for k, v in logs.items()}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -480,64 +501,105 @@ def phase_encoder_attn(dev, kernels) -> dict:
     return out
 
 
+# kernel #3's timed shapes, (batch, Tq): a decode step at the bench's
+# batches and a prompted prefill
+INT8_TIMED = ((8, 1), (32, 1), (128, 1), (8, 48), (128, 48))
+
+
 def phase_cross_attn_int8(dev, kernels) -> dict:
-    """Kernel #3 on whisper-small's int8 kernel-layout cache at B=128:
-    layers 0 and 11, Tq 1 and 4, then timed one layer per call; and B=8."""
+    """Kernel #3 on whisper-small's int8 kernel-layout cache (12 layers, 12
+    heads of 64, Tpad 1536, 1500 valid; values in [-128, 127]): held to its
+    plain version within 1e-3 (integer units) at B 8, 32, 128 x Tq 1, 4, 48
+    on a layer's view, at Tq 55, at valid_len 1, 128, 129 and 1536, and on a
+    cache of only -128, -127 and 127; the combine's counters back at 0
+    after the calls.  Then timed at ``INT8_TIMED``, the layers cycled (each
+    call streams one layer from HBM), by CUDA events and by the profiler's
+    kernel time, beside its byte and fp32 bounds, its plain version and SDPA
+    on the dequantized bf16 K/V."""
     from audio_processor_tpu_torch.ops.kernels import decode_attention as da
 
     n_layers, b, h, dh, tpad, valid = 12, 128, 12, 64, 1536, 1500
     g = torch.Generator(device=dev).manual_seed(7)
-    k8 = torch.randint(-127, 128, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (n_layers, b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    k8 = torch.randint(-128, 128, (n_layers, b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-128, 128, (n_layers, b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
     k8[..., valid:] = 0  # init_cache zero-pads past Ta
     v8[:, :, :, valid:] = 0
-    out = {"phase": "cross_attn_int8", "shape": [n_layers, b, h, dh, tpad], "valid_len": valid}
+    out = {"phase": "cross_attn_int8", "shape": [n_layers, b, h, dh, tpad], "valid_len": valid,
+           "card": card_line(), "port": os.path.dirname(da.__file__)}
     worst = 0.0
+
+    def q_of(rows, tq):
+        return torch.randn(rows, tq, h, dh, device=dev, generator=g) * 0.02
+
+    def gate(key, q, k, v, n=valid):
+        nonlocal worst
+        got = da.cross_attention_int8(q, k, v, valid_len=n)
+        torch.cuda.synchronize()
+        err = (got - da.cross_attention_int8_reference(q, k, v, valid_len=n)).abs().max().item()
+        # integer-unit outputs (|x| <= 128), f32 sums over up to 1536 keys
+        # in another order than the plain version's
+        if not (got.shape == q.shape and err <= 1e-3):
+            fail(f"cross_attn_int8 {key}: max abs err {err} > 1e-3 or shape {tuple(got.shape)}")
+        worst = max(worst, err)
+        out[f"max_abs_err_{key}"] = err
+
     for tq in (1, 4):
-        q = torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.02
+        q = q_of(b, tq)
         for l in (0, n_layers - 1):
-            got = da.cross_attention_int8(q, k8[l], v8[l], valid_len=valid)
-            torch.cuda.synchronize()
-            err = (got - da.cross_attention_int8_reference(q, k8[l], v8[l], valid_len=valid)).abs().max().item()
-            # integer-unit outputs (|x| <= 127), f32 sums over 1500 keys in
-            # another order than the plain version's
-            if not err <= 1e-3:
-                fail(f"cross_attn_int8 tq={tq} layer={l}: max abs err {err} > 1e-3")
-            worst = max(worst, err)
-            out[f"max_abs_err_tq{tq}_l{l}"] = err
-
-    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.02
-    layer_iter = iter(range(10**9))
-
-    def kernel():  # cycle the layers: each call streams one layer from HBM
-        l = next(layer_iter) % n_layers
-        return da.cross_attention_int8(q, k8[l], v8[l], valid_len=valid)
-
-    ms = time_ms(kernel, iters=48)
-    plain = time_ms(lambda: da.cross_attention_int8_reference(q, k8[0], v8[0], valid_len=valid), iters=3)
-    lib = time_ms(_sdpa_on_dequantized(q, k8[0][..., :valid], v8[0][:, :, :valid]), iters=20)
-
-    def needed(rows):  # bytes (valid K/V bytes, q in, out) and FLOPs of one call
-        return 2 * rows * h * dh * valid + 2 * 4 * rows * h * dh, 4 * rows * h * dh * valid
-
-    bms, by = bound_ms(*needed(b))
-    qs, k8s, v8s = q[:8].contiguous(), k8[3, :8].contiguous(), v8[3, :8].contiguous()
-    got = da.cross_attention_int8(qs, k8s, v8s, valid_len=valid)
+            gate(f"tq{tq}_l{l}", q, k8[l], v8[l])
+    for rows in (8, 32, 128):
+        for tq in (1, 4, 48):
+            gate(f"b{rows}_tq{tq}", q_of(rows, tq), k8[3, :rows], v8[3, :rows])
+    gate("b8_tq55", q_of(8, 55), k8[5, :8], v8[5, :8])
+    for n in (1, 128, 129, tpad):  # one key, a chunk's edge, one past it, every position
+        for tq in (1, 4):
+            gate(f"b8_tq{tq}_valid{n}", q_of(8, tq), k8[6, :8], v8[6, :8], n)
+    ext = torch.tensor([-128, -127, 127], dtype=torch.int8, device=dev)
+    k_ext = ext[torch.randint(0, 3, (8, h, dh, tpad), device=dev, generator=g)]
+    v_ext = ext[torch.randint(0, 3, (8, h, tpad, dh), device=dev, generator=g)]
+    for tq in (1, 4):
+        gate(f"extremes_tq{tq}", q_of(8, tq), k_ext, v_ext)
+    del k_ext, v_ext
     torch.cuda.synchronize()
-    err = (got - da.cross_attention_int8_reference(qs, k8s, v8s, valid_len=valid)).abs().max().item()
-    if not err <= 1e-3:
-        fail(f"cross_attn_int8 B=8: max abs err {err} > 1e-3")
-    worst = max(worst, err)
-    out.update(kernel_ms=ms, kernel_device_ms=device_ms(kernel, iters=48), plain_ms=plain,
-               library_ms=lib, bound_ms=bms, bound_by=by, timed="Tq=1, B=128, one layer per call",
-               max_abs_err_b8=err, bound_ms_b8=bound_ms(*needed(8))[0],
-               kernel_ms_b8=device_ms(lambda: da.cross_attention_int8(qs, k8s, v8s, valid_len=valid), iters=48))
+    held = {str(key): int(c.count_nonzero()) for key, (c, _) in da._SCRATCH.items()}
+    if any(held.values()):
+        fail(f"cross_attn_int8: combine counters left non-zero: {held}")
+    out["counters_nonzero_after"] = sum(held.values())
+
+    def needed(rows, tq):  # bytes (valid K/V bytes, q in, out) and fp32 FLOPs of one call
+        return 2 * rows * h * dh * valid + 2 * 4 * rows * tq * h * dh, 4 * rows * tq * h * dh * valid
+
+    timed = []
+    for rows, tq in INT8_TIMED:
+        q = q_of(rows, tq)
+        layer_iter = iter(range(10**9))
+
+        def kernel(q=q, rows=rows):  # cycle the layers: each call streams one layer from HBM
+            l = next(layer_iter) % n_layers
+            return da.cross_attention_int8(q, k8[l, :rows], v8[l, :rows], valid_len=valid)
+
+        n_bytes, n_flops = needed(rows, tq)
+        bms, by = bound_ms(n_bytes, n_flops)
+        row = {"batch": rows, "tq": tq, "ms": time_ms(kernel, iters=48),
+               "dev_ms": device_ms(kernel, iters=48),
+               "plain_ms": time_ms(lambda q=q, rows=rows: da.cross_attention_int8_reference(
+                   q, k8[0, :rows], v8[0, :rows], valid_len=valid), iters=2, warmup=1),
+               "library_ms": time_ms(_sdpa_on_dequantized(q, k8[0, :rows][..., :valid],
+                                                          v8[0, :rows][:, :, :valid]), iters=20),
+               "bound_ms": bms, "bound_by": by, "bytes_bound_ms": bound_ms(n_bytes, 0)[0],
+               "fp32_bound_ms": bound_ms(0, n_flops)[0]}
+        row["bound_share"] = bms / row["dev_ms"]
+        timed.append(row)
+        del q
+    out["timed"] = timed
+    step = next(r for r in timed if (r["batch"], r["tq"]) == (b, 1))
     kernels["cross_attn_int8"] = dict(
         name="cross_attn_int8", route="cuda", source="audio_processor_tpu_torch/csrc/cross_attn_int8.cu",
         replaces="audio_processor_tpu/ops/pallas/decode_attention.py:83",
-        max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+        bound_by=step["bound_by"], library_ms=step["library_ms"],
         shape=f"q ({b}, 1, {h}, {dh}) f32 vs layer of K/V ({n_layers}, {b}, {h}, ., {tpad}) int8",
-        ms_b8=out["kernel_ms_b8"], bound_ms_b8=out["bound_ms_b8"],
+        timed=timed,
     )
     return out
 
@@ -1805,7 +1867,8 @@ def phase_transcribe_words(dev, counters, card: str) -> dict:
 
 
 def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder: bool = False,
-                decoder: str = "int4", counters=()) -> dict:
+                decoder: str = "int4", counters=(),
+                profile_match: tuple[str, str] | None = None) -> dict:
     """The JAX package's bench.py headline workload on the port: int16 30 s
     chunks -> log-mel -> encode -> 96-token decode, EOT suppressed, bf16,
     ``bs`` windows a batch (bench.py and the Transcriber's default slab use
@@ -1816,7 +1879,11 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder:
     weights quantized, their scales float32);
     ``fused_encoder`` runs encoder attention through its kernel (bench.py
     --fused-encoder).  ``counters`` are zeroed before the timed batches and
-    read after them."""
+    read after them.  ``profile_match`` (kernel-name part, counter name):
+    the profile sums the kernels whose name holds the part, and their calls
+    must equal the counter's launches a batch; the card-only profiler now
+    and then drops a kernel's event, so a batch is profiled up to 3 times
+    before the run fails."""
     from audio_processor_tpu_torch.models.whisper import decode, model, quantize
     from audio_processor_tpu_torch.ops import frontend
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
@@ -1892,25 +1959,67 @@ def phase_bench(dev, tr, bs: int, n_timed: int, profile: bool, *, fused_encoder:
         "weights_gb": base_gb, "encode_peak_mem_gb": enc_peak_gb,
         "decode_peak_mem_gb": dec_peak_gb, "launches": launches,
     }
-    if profile:
+    if profile and profile_match is None:
         out["profile"] = profile_decode(lambda: run_decode(encode()).tokens.cpu(), med)
+    elif profile:
+        part, counter = profile_match
+        want = launches[counter] // n_timed
+        seen = []
+        for _ in range(3):
+            prof = profile_decode(lambda: run_decode(encode()).tokens.cpu(), med, match=part)
+            if not isinstance(prof, dict):
+                break
+            seen.append(prof["matched"]["calls"])
+            if seen[-1] == want:
+                break
+        else:
+            fail(f"bench B={bs} {decoder}: the profiler saw {seen} {part} kernels a batch, "
+                 f"the counter {want}")
+        if isinstance(prof, dict):
+            prof["matched"].update(launches_a_batch=want, calls_seen=seen)
+        out["profile"] = prof
     return out
 
 
-def profile_decode(fn, unprofiled_ms: float) -> dict | str:
+def phase_int8_bench(dev, tr, kernels, counter) -> dict:
+    """The int8-kernel bench line: greedy decode over the int8 cross cache
+    through #3 at B=32 (``phase_bench``, 3 batches timed, profiled), with
+    #3's launches into its kernel line and its share of the profiled
+    batch's kernel time and of its unprofiled wall, summed over every
+    instantiation of #3's kernel, whose profiled calls equal a batch's
+    launches."""
+    line = phase_bench(dev, tr, bs=32, n_timed=3, profile=True, decoder="int8-kernel",
+                       counters=[counter], profile_match=("cross_attn_int8", counter.__name__))
+    kernels["cross_attn_int8"]["launches"] = line["launches"][counter.__name__]
+    prof = line["profile"]
+    if isinstance(prof, dict):
+        ms = prof["matched"]["ms"]
+        line.update(int8_kernel_ms=ms, int8_kernel_share_of_kernels=ms / prof["kernel_ms"],
+                    int8_kernel_share_of_wall=ms / prof["unprofiled_wall_ms"])
+    return line
+
+
+def profile_decode(fn, unprofiled_ms: float, match: str | None = None) -> dict | str:
     """Device time by kernel over one encode+decode batch (the card's
     activity alone).  The busy share divides the kernel time by the
     UNPROFILED wall time of the same work, since the profiler slows the
-    host."""
+    host.  ``match``: also sum the time and calls of every kernel whose
+    name holds it (each instantiation of a template), not only the top
+    rows'."""
     rows = kernel_rows(fn, cpu_ops=False)
     if not rows:
         return "not measured (the profiler recorded no kernel time)"
     total = sum(r[0] for r in rows)
-    return {
+    out = {
         "kernel_ms": total, "unprofiled_wall_ms": unprofiled_ms,
         "device_busy_share": total / unprofiled_ms,
         "top": [{"name": k[:90], "ms": ms, "calls": n} for ms, k, n in rows[:14]],
     }
+    if match is not None:
+        hits = [(ms, n) for ms, k, n in rows if match in k]
+        out["matched"] = {"match": match, "kernels": len(hits), "ms": sum(h[0] for h in hits),
+                          "calls": sum(h[1] for h in hits)}
+    return out
 
 
 def make_meeting(rng, f0s, duration_s: float, sr: int = 16_000) -> tuple[np.ndarray, list]:
@@ -3799,6 +3908,9 @@ def main(argv: list[str] | None = None) -> None:
                          "held to (on a machine with a card per rank: the NCCL worlds)")
     ap.add_argument("--probes-only", action="store_true",
                     help="run only the build (its SASS gates) and the probes phase")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="run only the build, kernel #3's phase and the int8-kernel bench "
+                         "line at B=32, profiled")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU", 2)
@@ -3824,10 +3936,33 @@ def main(argv: list[str] | None = None) -> None:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    logs = build.build(["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn",
+    logs = build.build(["log_mel", "cross_attn_int8"] if args.int8_only else
+                       ["log_mel", "cross_attn_int4", "cross_attn_int8", "encoder_attn",
                         "cross_attn_probes", "dtw"], ptxas_report=True)
     # per kernel: its name, then its registers and its spills; kernel B's
-    # library must convert nibbles without an int-to-float instruction
+    # and #3's libraries must convert their bytes without an int-to-float
+    # instruction
+    int8_i2f = sass_i2f(build, "cross_attn_int8")
+    if isinstance(int8_i2f, dict):
+        int8_i2f = sum(int8_i2f.values())
+        if int8_i2f:
+            fail(f"build: cross_attn_int8's SASS holds {int8_i2f} I2F instructions")
+    if args.int8_only:
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "cross_attn_int8_sass_i2f": int8_i2f,
+              "ptxas": ptxas_lines(logs)})
+        int8_kernels: dict[str, dict] = {}
+        emit(phase_cross_attn_int8(dev, int8_kernels))
+        from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+        tr = Transcriber.random_init("small", device=dev)  # bf16, random weights
+        emit(phase_int8_bench(dev, tr, int8_kernels, cross_attention_int8))
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        print(card, flush=True)
+        emit({"kernels": list(int8_kernels.values())})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     i2f = sass_i2f(build, "cross_attn_int4")
     if isinstance(i2f, dict):
         i2f = sum(i2f.values())
@@ -3843,10 +3978,8 @@ def main(argv: list[str] | None = None) -> None:
         probe_i2f = {"byte_unpack": probe_i2f[byte[0]], "other_kernels": sum(probe_i2f.values())
                      - probe_i2f[byte[0]], "kernels": len(probe_i2f)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "cross_attn_int4_sass_i2f": i2f,
-          "cross_attn_probes_sass_i2f": probe_i2f,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if any(w in ln for w in ("Function properties", "registers", "spill"))]
-                    for k, v in logs.items()}})
+          "cross_attn_int8_sass_i2f": int8_i2f, "cross_attn_probes_sass_i2f": probe_i2f,
+          "ptxas": ptxas_lines(logs)})
     if args.tp_only:
         summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
         emit(summary)
@@ -3904,10 +4037,7 @@ def main(argv: list[str] | None = None) -> None:
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False))
     emit(phase_bench(dev, tr, bs=128, n_timed=2, profile=False, fused_encoder=True,
                      counters=[fused_self_attention]))
-    int8 = phase_bench(dev, tr, bs=32, n_timed=3, profile=False, decoder="int8-kernel",
-                       counters=[cross_attention_int8])
-    emit(int8)
-    kernels["cross_attn_int8"]["launches"] = int8["launches"]["cross_attention_int8"]
+    emit(phase_int8_bench(dev, tr, kernels, cross_attention_int8))
     emit(phase_bench(dev, tr, bs=32, n_timed=2, profile=False, decoder="beam5",
                      counters=[cross_attention_int4_stacked]))
     emit(phase_bench(dev, tr, bs=32, n_timed=3, profile=False, decoder="int4-self-int8-w8",

@@ -276,16 +276,26 @@ def test_decode_on_card_matches_cpu(dev, kind, kw, counter):
     assert math.isclose(gpu.sum_logprob.sum().item(), cpu.sum_logprob.sum().item(), abs_tol=1e-2)
 
 
-@pytest.mark.parametrize("b,tq,layer", [(128, 1, 0), (128, 4, 11), (8, 1, 3)])
+def _int8_counters_at_zero() -> bool:
+    torch.cuda.synchronize()
+    return all(int(c.count_nonzero()) == 0 for c, _ in da._SCRATCH.values())
+
+
+@pytest.mark.parametrize("b,tq,layer", [(128, 1, 0), (128, 4, 11), (8, 1, 3), (8, 4, 2),
+                                        (8, 48, 7), (32, 1, 1), (32, 4, 4), (32, 48, 9),
+                                        (128, 48, 5), (8, 55, 6)])
 def test_int8_cross_attention_kernel_matches_plain(dev, b, tq, layer):
     """Whisper-small's int8 kernel layout (H=12, Dh=64, Tpad=1536, 1500
-    valid) read per layer in place; integer-unit outputs up to 127, f32
-    sums over 1500 keys in another order than the plain version's."""
+    valid; values in [-128, 127]) read per layer in place, at decode steps
+    and prefills (Tq 4 and 48 in the kernel's 4-row passes, 55 with a
+    3-row last pass); integer-unit outputs up to 128, f32 sums over 1500
+    keys in another order than the plain version's.  The combine's
+    counters are back at 0 after the call."""
     g = torch.Generator(device=dev).manual_seed(b + tq)
     n_layers, h, dh, tpad, valid = 12, 12, 64, 1536, 1500
-    k8 = torch.randint(-127, 128, (n_layers, b, h, dh, tpad), device=dev, generator=g,
+    k8 = torch.randint(-128, 128, (n_layers, b, h, dh, tpad), device=dev, generator=g,
                        dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (n_layers, b, h, tpad, dh), device=dev, generator=g,
+    v8 = torch.randint(-128, 128, (n_layers, b, h, tpad, dh), device=dev, generator=g,
                        dtype=torch.int8)
     q = torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.02
     before = da.cross_attention_int8.launches
@@ -293,7 +303,104 @@ def test_int8_cross_attention_kernel_matches_plain(dev, b, tq, layer):
     torch.cuda.synchronize()
     assert da.cross_attention_int8.launches == before + 1
     ref = da.cross_attention_int8_reference(q, k8[layer], v8[layer], valid_len=valid)
+    assert out.shape == ref.shape
     assert (out - ref).abs().max().item() <= 1e-3
+    assert _int8_counters_at_zero()
+
+
+@pytest.mark.parametrize("tq", [1, 4, 55])
+@pytest.mark.parametrize("valid", [1, 127, 128, 129, 1500, 1536])
+def test_int8_cross_attention_kernel_valid_len_edges(dev, valid, tq):
+    """One key, either side of the first 128-position chunk's edge,
+    whisper's 1500 and every position of Tpad=1536 (B=8, whisper-small's
+    heads): within 1e-3 of the plain version, counters back at 0."""
+    g = torch.Generator(device=dev).manual_seed(valid + 100 * tq)
+    b, h, dh, tpad = 8, 12, 64, 1536
+    k8 = torch.randint(-128, 128, (b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-128, 128, (b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    q = torch.randn(b, tq, h, dh, device=dev, generator=g) * 0.02
+    out = da.cross_attention_int8(q, k8, v8, valid_len=valid)
+    ref = da.cross_attention_int8_reference(q, k8, v8, valid_len=valid)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert _int8_counters_at_zero()
+
+
+@pytest.mark.parametrize("tq", [1, 4])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128, 256])
+def test_int8_cross_attention_kernel_every_head_width(dev, dh, tq):
+    """Every instantiated Dh (powers of two, 8..256) on a cache of only the
+    int8 extremes -128, -127 and 127, Tpad=384 with 300 valid: within
+    1e-3 of the plain version, counters back at 0."""
+    g = torch.Generator(device=dev).manual_seed(dh + tq)
+    b, h, tpad, valid = 3, 2, 384, 300
+    ext = torch.tensor([-128, -127, 127], dtype=torch.int8, device=dev)
+    k8 = ext[torch.randint(0, 3, (b, h, dh, tpad), device=dev, generator=g)]
+    v8 = ext[torch.randint(0, 3, (b, h, tpad, dh), device=dev, generator=g)]
+    q = torch.randn(b, tq, h, dh, device=dev, generator=g) * (0.16 / math.sqrt(dh))
+    out = da.cross_attention_int8(q, k8, v8, valid_len=valid)
+    ref = da.cross_attention_int8_reference(q, k8, v8, valid_len=valid)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert _int8_counters_at_zero()
+
+
+def test_int8_cross_attention_kernel_output_does_not_depend_on_the_batch(dev):
+    """A (row, head)'s chunks and the order its last block combines them do
+    not depend on the grid: rows 2-4 of a B=8 call equal a B=3 call on
+    those rows bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, h, dh, tpad, valid = 8, 12, 64, 1536, 1500
+    k8 = torch.randint(-128, 128, (b, h, dh, tpad), device=dev, generator=g, dtype=torch.int8)
+    v8 = torch.randint(-128, 128, (b, h, tpad, dh), device=dev, generator=g, dtype=torch.int8)
+    q = torch.randn(b, 1, h, dh, device=dev, generator=g) * 0.02
+    full = da.cross_attention_int8(q, k8, v8, valid_len=valid)
+    part = da.cross_attention_int8(q[2:5].contiguous(), k8[2:5], v8[2:5], valid_len=valid)
+    assert torch.equal(full[2:5], part)
+
+
+def _int8_refusals(dev):
+    """(label, q, k8t, v8, valid_len) the kernel does not take."""
+    q = torch.zeros((2, 1, 2, 16), device=dev)
+    k8 = torch.zeros((2, 2, 16, 128), dtype=torch.int8, device=dev)
+    v8 = torch.zeros((2, 2, 128, 16), dtype=torch.int8, device=dev)
+    q24 = torch.zeros((2, 1, 2, 24), device=dev)
+    q4 = torch.zeros((2, 1, 2, 4), device=dev)
+    q512 = torch.zeros((2, 1, 2, 512), device=dev)
+    flat_k = torch.zeros(2 * 2 * 16 * 128 + 1, dtype=torch.int8, device=dev)
+    return {
+        "v-transposed": (q, k8, v8.transpose(2, 3), 100),
+        "valid-past-tpad": (q, k8, v8, 200),
+        "valid-zero": (q, k8, v8, 0),
+        "q-float64": (q.double(), k8, v8, 100),
+        "q-not-contiguous": (torch.zeros((2, 1, 16, 2), device=dev).transpose(2, 3), k8, v8, 100),
+        "k-uint8": (q, k8.view(torch.uint8), v8, 100),
+        "v-shape": (q, k8, v8[:, :, :64], 50),
+        "dh-24": (q24, torch.zeros((2, 2, 24, 128), dtype=torch.int8, device=dev),
+                  torch.zeros((2, 2, 128, 24), dtype=torch.int8, device=dev), 100),
+        "dh-4": (q4, torch.zeros((2, 2, 4, 128), dtype=torch.int8, device=dev),
+                 torch.zeros((2, 2, 128, 4), dtype=torch.int8, device=dev), 100),
+        "dh-512": (q512, torch.zeros((2, 2, 512, 128), dtype=torch.int8, device=dev),
+                   torch.zeros((2, 2, 128, 512), dtype=torch.int8, device=dev), 100),
+        "tpad-192": (q, torch.zeros((2, 2, 16, 192), dtype=torch.int8, device=dev),
+                     torch.zeros((2, 2, 192, 16), dtype=torch.int8, device=dev), 100),
+        "tpad-too-long": (q, torch.zeros((2, 2, 16, 128 * 129), dtype=torch.int8, device=dev),
+                          torch.zeros((2, 2, 128 * 129, 16), dtype=torch.int8, device=dev), 100),
+        "k-misaligned": (q, flat_k[1:].view(2, 2, 16, 128), v8, 100),
+        "k-on-cpu": (q, k8.cpu(), v8, 100),
+    }
+
+
+@pytest.mark.parametrize("label", ["v-transposed", "valid-past-tpad", "valid-zero", "q-float64",
+                                   "q-not-contiguous", "k-uint8", "v-shape", "dh-24", "dh-4",
+                                   "dh-512", "tpad-192", "tpad-too-long", "k-misaligned",
+                                   "k-on-cpu"])
+def test_int8_cross_attention_kernel_refusals(dev, label):
+    """Each input the kernel does not take raises ValueError before any
+    launch; none falls back to the plain version."""
+    q, k8, v8, valid = _int8_refusals(dev)[label]
+    before = da.cross_attention_int8.launches
+    with pytest.raises(ValueError):
+        da.cross_attention_int8(q, k8, v8, valid_len=valid)
+    assert da.cross_attention_int8.launches == before
 
 
 def test_int4_single_layer_kernel_matches_plain(dev):

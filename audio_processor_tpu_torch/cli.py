@@ -166,8 +166,8 @@ def cmd_transcribe(args) -> None:
     )
 
     def render(out: dict, f: str) -> str:
-        if f == "json":
-            return json.dumps(out, indent=2) + "\n"
+        if f == "json":  # openai's result; the stage trace is the service's
+            return json.dumps({k: v for k, v in out.items() if k != "trace"}, indent=2) + "\n"
         return writers.format_segments(out["segments"], f, **(wopt if f in ("srt", "vtt") else {}))
 
     on_segment = None

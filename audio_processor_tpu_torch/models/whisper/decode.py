@@ -7,7 +7,11 @@ layouts of the cross cache), the cached decoder forward with left-padded
 per-row prompts, Whisper's logit rules, the greedy/sampling loop with
 best_of ranking, prompted greedy decode, beam search with openai's
 BeamSearchDecoder semantics, language detection, and the host-side seek
-and segment helpers.
+and segment helpers.  Each decode's cache and prefill, each step of its
+loop, and the step's one read-back of the finished flags are spans of the
+open request's trace (``decode.prefill``, ``decode.step``,
+``decode.wait``; ``runtime/trace.py``), and the counter ``decode.steps``
+counts the steps: a step's host issue time is its span less its wait.
 
 Differences in idiom from the JAX version:
   * The self-attention cache is head-major, (L, B, H, T_max, Dh), so the
@@ -53,6 +57,7 @@ from ...ops.kernels.decode_attention import (
     cross_attention_int8,
     pack_int4_time,
 )
+from ...runtime import trace
 from .config import WhisperConfig
 from .model import (
     Params,
@@ -664,34 +669,41 @@ def _sample_loop(
         row_keys = sampling_row_keys(rng_seed, torch.arange(row0, row0 + b, device=dev))
     logits = last_logits
     for step in range(max_new_tokens):
-        masked = apply_logit_rules(
-            logits, st, step=step, last_token=last, penultimate_token=penult,
-            max_ts_token=max_ts, suppress_mask=suppress_mask,
-            use_timestamps=use_timestamps,
-            max_initial_timestamp_index=max_initial_ts_index,
-            space_blank_id=space_blank_id,
-        )
-        if temperature > 0:
-            next_tok = sample_tokens(masked, temperature, row_keys, step)
-        else:
-            next_tok = masked.argmax(dim=-1)
-        logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]
-        next_tok = torch.where(finished, st.eot, next_tok)
-        sum_lp = sum_lp + torch.where(finished, 0.0, logprob)
-        max_ts = torch.where(
-            (next_tok >= tb) & ~finished, torch.maximum(max_ts, next_tok), max_ts
-        )
-        finished = finished | (next_tok == st.eot)
-        tokens[:, step] = next_tok
-        penult, last = last, next_tok
-        if step + 1 == max_new_tokens or bool(finished.all()):
-            break
-        logits, _ = decoder_forward_cached(
-            params, cfg, next_tok[:, None], cache, start_pos + step,
-            pos_offset=pos_offset, min_valid=min_valid, compute_dtype=compute_dtype,
-            kernel_layout=kernel_layout, unembed=unembed, mesh=mesh,
-        )
-        logits = logits[:, -1]
+        with trace.span("decode.step"):
+            trace.count("decode.steps")
+            masked = apply_logit_rules(
+                logits, st, step=step, last_token=last, penultimate_token=penult,
+                max_ts_token=max_ts, suppress_mask=suppress_mask,
+                use_timestamps=use_timestamps,
+                max_initial_timestamp_index=max_initial_ts_index,
+                space_blank_id=space_blank_id,
+            )
+            if temperature > 0:
+                next_tok = sample_tokens(masked, temperature, row_keys, step)
+            else:
+                next_tok = masked.argmax(dim=-1)
+            logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]
+            next_tok = torch.where(finished, st.eot, next_tok)
+            sum_lp = sum_lp + torch.where(finished, 0.0, logprob)
+            max_ts = torch.where(
+                (next_tok >= tb) & ~finished, torch.maximum(max_ts, next_tok), max_ts
+            )
+            finished = finished | (next_tok == st.eot)
+            tokens[:, step] = next_tok
+            penult, last = last, next_tok
+            if step + 1 == max_new_tokens:
+                break
+            # the step's one read-back: the host waits here for the card
+            with trace.span("decode.wait"):
+                done = bool(finished.all())
+            if done:
+                break
+            logits, _ = decoder_forward_cached(
+                params, cfg, next_tok[:, None], cache, start_pos + step,
+                pos_offset=pos_offset, min_valid=min_valid, compute_dtype=compute_dtype,
+                kernel_layout=kernel_layout, unembed=unembed, mesh=mesh,
+            )
+            logits = logits[:, -1]
     lengths = (tokens != st.eot).sum(dim=-1)
     return tokens, lengths, sum_lp
 
@@ -768,19 +780,20 @@ def _decode_rows(
             pad_len = pad_len.repeat_interleave(group, dim=0)
     b, p_len = prompt.shape
     kernel_layout = _kernel_layout(quantize_cross_kv, use_pallas_kernel, kv_bits)
-    cache = init_cache(
-        params, cfg, audio_states, p_len + max_new_tokens, dtype=dtype,
-        quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-        kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
-    )
     unembed = params["decoder"]["token_emb"].float()
     row_kw = dict(pos_offset=pad_len, min_valid=pad_len, compute_dtype=dtype,
                   kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)
-    # prefill; unembed only the sot slot (fixed: every row ends in the same
-    # sot sequence) and the last one
-    logits, cache = decoder_forward_cached(
-        params, cfg, prompt, cache, 0, logit_positions=(p_len - sot_len, -1), **row_kw,
-    )
+    with trace.span("decode.prefill"):
+        cache = init_cache(
+            params, cfg, audio_states, p_len + max_new_tokens, dtype=dtype,
+            quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
+            kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
+        )
+        # prefill; unembed only the sot slot (fixed: every row ends in the
+        # same sot sequence) and the last one
+        logits, cache = decoder_forward_cached(
+            params, cfg, prompt, cache, 0, logit_positions=(p_len - sot_len, -1), **row_kw,
+        )
     no_speech_prob = _no_speech_prob(st, cfg, logits[:, 0])
     tokens, lengths, sum_logprob = _sample_loop(
         params, cfg, st, cache, logits[:, 1],
@@ -1006,11 +1019,6 @@ def beam_decode(
         prompt_lens = torch.as_tensor(np.asarray(prompt_lens), device=dev).long()
     prompt_len = prompt_tokens.shape[1] if prompted else len(sot_sequence)
     kernel_layout = _kernel_layout(quantize_cross_kv, use_pallas_kernel, kv_bits)
-    cache = init_cache(
-        params, cfg, audio_states.repeat_interleave(k, dim=0), prompt_len + max_new_tokens,
-        dtype=dtype, quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-        kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
-    )
     unembed = params["decoder"]["token_emb"].float()
     row_kw = dict(compute_dtype=dtype, kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)
     if prompted:
@@ -1024,9 +1032,15 @@ def beam_decode(
         last = torch.full((b, k), sot_sequence[-1], dtype=torch.long, device=dev)
         penult = torch.full((b, k), sot_sequence[0], dtype=torch.long, device=dev)
     sot_slot = prompt_len - len(sot_sequence)
-    logits, cache = decoder_forward_cached(
-        params, cfg, prompt, cache, 0, logit_positions=(sot_slot, -1), **row_kw,
-    )
+    with trace.span("decode.prefill"):
+        cache = init_cache(
+            params, cfg, audio_states.repeat_interleave(k, dim=0), prompt_len + max_new_tokens,
+            dtype=dtype, quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
+            kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
+        )
+        logits, cache = decoder_forward_cached(
+            params, cfg, prompt, cache, 0, logit_positions=(sot_slot, -1), **row_kw,
+        )
     no_speech_prob = _no_speech_prob(st, cfg, logits[:, 0]).reshape(b, k)[:, 0]
     logits = logits[:, 1]  # (B*K, V)
 
@@ -1053,63 +1067,69 @@ def beam_decode(
 
     n_steps = 0
     for step in range(max_new_tokens):
-        masked = apply_logit_rules(
-            logits, st, step=step, last_token=last.reshape(-1),
-            penultimate_token=penult.reshape(-1), max_ts_token=max_ts.reshape(-1),
-            suppress_mask=suppress_mask, use_timestamps=use_timestamps,
-            max_initial_timestamp_index=max_initial_ts_index,
-            space_blank_id=space_blank_id,
-        )
-        cand = scores[:, :, None] + torch.log_softmax(masked, dim=-1).reshape(b, k, v)
-        # top 2K: at most one EOT candidate per live beam, so this holds at
-        # least K non-EOT continuations and every EOT candidate that could
-        # outrank the K-th of them
-        top2, idx2 = _top_k_lower_index(cand.reshape(b, k * v), 2 * k)
-        tok2, src2 = idx2 % v, idx2 // v
-        is_eot2 = tok2 == eot
+        with trace.span("decode.step"):
+            trace.count("decode.steps")
+            masked = apply_logit_rules(
+                logits, st, step=step, last_token=last.reshape(-1),
+                penultimate_token=penult.reshape(-1), max_ts_token=max_ts.reshape(-1),
+                suppress_mask=suppress_mask, use_timestamps=use_timestamps,
+                max_initial_timestamp_index=max_initial_ts_index,
+                space_blank_id=space_blank_id,
+            )
+            cand = scores[:, :, None] + torch.log_softmax(masked, dim=-1).reshape(b, k, v)
+            # top 2K: at most one EOT candidate per live beam, so this holds at
+            # least K non-EOT continuations and every EOT candidate that could
+            # outrank the K-th of them
+            top2, idx2 = _top_k_lower_index(cand.reshape(b, k * v), 2 * k)
+            tok2, src2 = idx2 % v, idx2 // v
+            is_eot2 = tok2 == eot
 
-        # live beams: the first K non-EOT candidates in score order
-        order = torch.argsort(torch.where(is_eot2, 2 * k + pos2k, pos2k), dim=-1)[:, :k]
-        next_tok = tok2.gather(1, order)
-        src_beam = src2.gather(1, order)
-        new_scores = top2.gather(1, order)
+            # live beams: the first K non-EOT candidates in score order
+            order = torch.argsort(torch.where(is_eot2, 2 * k + pos2k, pos2k), dim=-1)[:, :k]
+            next_tok = tok2.gather(1, order)
+            src_beam = src2.gather(1, order)
+            new_scores = top2.gather(1, order)
 
-        # finished set: EOT candidates ranked above the K-th non-EOT one
-        # take the next free slots; the source beam's buffer still holds EOT
-        # at ``step``, which is the terminator
-        not_eot = (~is_eot2).long()
-        qual = is_eot2 & (torch.cumsum(not_eot, dim=-1) - not_eot < k)
-        qual_l = qual.long()
-        slot = fin_count[:, None] + torch.cumsum(qual_l, dim=-1) - qual_l
-        take_it = qual & (slot < m_fin)
-        slot = torch.where(take_it, slot, cap)
-        fin_tokens.scatter_(1, slot[:, :, None].expand(-1, -1, max_new_tokens),
-                            rows_of(tokens, src2))
-        fin_scores.scatter_(1, slot, top2)
-        fin_lengths.scatter_(1, slot, torch.full_like(slot, step))
-        fin_count = torch.clamp(fin_count + take_it.sum(dim=-1), max=m_fin)
+            # finished set: EOT candidates ranked above the K-th non-EOT one
+            # take the next free slots; the source beam's buffer still holds EOT
+            # at ``step``, which is the terminator
+            not_eot = (~is_eot2).long()
+            qual = is_eot2 & (torch.cumsum(not_eot, dim=-1) - not_eot < k)
+            qual_l = qual.long()
+            slot = fin_count[:, None] + torch.cumsum(qual_l, dim=-1) - qual_l
+            take_it = qual & (slot < m_fin)
+            slot = torch.where(take_it, slot, cap)
+            fin_tokens.scatter_(1, slot[:, :, None].expand(-1, -1, max_new_tokens),
+                                rows_of(tokens, src2))
+            fin_scores.scatter_(1, slot, top2)
+            fin_lengths.scatter_(1, slot, torch.full_like(slot, step))
+            fin_count = torch.clamp(fin_count + take_it.sum(dim=-1), max=m_fin)
 
-        tokens = rows_of(tokens, src_beam)
-        tokens[:, :, step] = next_tok
-        penult = last.gather(1, src_beam)
-        max_ts = max_ts.gather(1, src_beam)
-        max_ts = torch.where(next_tok >= tb, torch.maximum(max_ts, next_tok), max_ts)
-        last = next_tok
-        scores = new_scores
-        n_steps = step + 1
-        if n_steps == max_new_tokens or bool((fin_count >= m_fin).all()):
-            break
-        # reorder the self cache to the new beams: only the positions
-        # written so far, in place (flat row = element * K + source beam)
-        row_idx = (rows_b[:, None] * k + src_beam).reshape(-1)
-        written = prompt_len + step
-        for c in (cache.self_k, cache.self_v, cache.self_k_scale, cache.self_v_scale):
-            if c is not None:
-                c[:, :, :, :written] = c[:, row_idx, :, :written]
-        logits, cache = decoder_forward_cached(
-            params, cfg, next_tok.reshape(b * k, 1), cache, prompt_len + step, **row_kw,
-        )
-        logits = logits[:, -1]
+            tokens = rows_of(tokens, src_beam)
+            tokens[:, :, step] = next_tok
+            penult = last.gather(1, src_beam)
+            max_ts = max_ts.gather(1, src_beam)
+            max_ts = torch.where(next_tok >= tb, torch.maximum(max_ts, next_tok), max_ts)
+            last = next_tok
+            scores = new_scores
+            n_steps = step + 1
+            if n_steps == max_new_tokens:
+                break
+            with trace.span("decode.wait"):
+                done = bool((fin_count >= m_fin).all())
+            if done:
+                break
+            # reorder the self cache to the new beams: only the positions
+            # written so far, in place (flat row = element * K + source beam)
+            row_idx = (rows_b[:, None] * k + src_beam).reshape(-1)
+            written = prompt_len + step
+            for c in (cache.self_k, cache.self_v, cache.self_k_scale, cache.self_v_scale):
+                if c is not None:
+                    c[:, :, :, :written] = c[:, row_idx, :, :written]
+            logits, cache = decoder_forward_cached(
+                params, cfg, next_tok.reshape(b * k, 1), cache, prompt_len + step, **row_kw,
+            )
+            logits = logits[:, -1]
 
     # openai's finalize: elements short of K finished hypotheses are topped
     # up from the live beams by raw score, with no EOT logprob added

@@ -44,6 +44,7 @@ from ..models.diarization import segmentation as seg_lib
 from ..models.diarization import segmentation_tpu as seg_tpu
 from ..ops import frontend
 from ..parallel import mesh as mesh_lib
+from ..runtime import trace
 from ..runtime.device import resolve_device
 from . import ingest
 from .transcribe import _bucket as _bucket_pow2
@@ -317,35 +318,36 @@ class Diarizer:
         # first ceil(crop_len / step) active frames of a pair can reach the
         # crop, so the gather is a bounded (N, need, step) fancy index,
         # chunked to bound its scratch memory
-        crop_len = self.emb_cfg.crop_samples
-        active = probs > self.onset
-        min_frames = int(self.min_speech_s / fs)
-        step = int(fs * sr)
-        n_act_all = active.sum(axis=1)  # (W, S)
-        ew, es = np.nonzero(n_act_all >= max(min_frames, 1))  # row-major
-        if len(ew) == 0:
-            return ([], None) if return_embeddings else []
-        owners = list(zip(ew.tolist(), es.tolist()))
-        need = min(-(-crop_len // step), n_frames)
-        audio_pad = np.pad(audio, (0, n_frames * step))
-        crops = np.empty((len(ew), crop_len), np.float32)
-        chunk = 256  # (256, need, step) float32 scratch, ~50 MB at 3 s crops
-        for lo in range(0, len(ew), chunk):
-            w_idx, s_idx = ew[lo : lo + chunk], es[lo : lo + chunk]
-            act = active[w_idx, :, s_idx]  # (n, F)
-            # first `need` active frame numbers per pair (stable argsort)
-            order = np.argsort(~act, axis=1, kind="stable")[:, :need]
-            base = (starts_s[w_idx] * sr).astype(np.int64)
-            sample_idx = (
-                base[:, None, None]
-                + order[:, :, None] * step
-                + np.arange(step)[None, None, :]
-            )
-            flat = audio_pad[sample_idx].reshape(len(w_idx), need * step)
-            # wrap-pad pairs with less speech than crop_len
-            valid = np.minimum(n_act_all[w_idx, s_idx] * step, need * step)
-            col = np.arange(crop_len)[None, :] % np.maximum(valid[:, None], 1)
-            crops[lo : lo + chunk] = np.take_along_axis(flat, col, axis=1)
+        with trace.span("diarize.crop_gather"):
+            crop_len = self.emb_cfg.crop_samples
+            active = probs > self.onset
+            min_frames = int(self.min_speech_s / fs)
+            step = int(fs * sr)
+            n_act_all = active.sum(axis=1)  # (W, S)
+            ew, es = np.nonzero(n_act_all >= max(min_frames, 1))  # row-major
+            if len(ew) == 0:
+                return ([], None) if return_embeddings else []
+            owners = list(zip(ew.tolist(), es.tolist()))
+            need = min(-(-crop_len // step), n_frames)
+            audio_pad = np.pad(audio, (0, n_frames * step))
+            crops = np.empty((len(ew), crop_len), np.float32)
+            chunk = 256  # (256, need, step) float32 scratch, ~50 MB at 3 s crops
+            for lo in range(0, len(ew), chunk):
+                w_idx, s_idx = ew[lo : lo + chunk], es[lo : lo + chunk]
+                act = active[w_idx, :, s_idx]  # (n, F)
+                # first `need` active frame numbers per pair (stable argsort)
+                order = np.argsort(~act, axis=1, kind="stable")[:, :need]
+                base = (starts_s[w_idx] * sr).astype(np.int64)
+                sample_idx = (
+                    base[:, None, None]
+                    + order[:, :, None] * step
+                    + np.arange(step)[None, None, :]
+                )
+                flat = audio_pad[sample_idx].reshape(len(w_idx), need * step)
+                # wrap-pad pairs with less speech than crop_len
+                valid = np.minimum(n_act_all[w_idx, s_idx] * step, need * step)
+                col = np.arange(crop_len)[None, :] % np.maximum(valid[:, None], 1)
+                crops[lo : lo + chunk] = np.take_along_axis(flat, col, axis=1)
 
         embeddings = self._embed_all(crops)
         # min_cluster_frac scales the dissolution size with the meeting

@@ -10,7 +10,9 @@ The port of the JAX package's ``pipeline/meeting.py``: the stages,
 progress values, cancellation points, salvage, local-path rules, model
 fallback and result dict are that module's.  Stage 4 runs the port's
 ``Transcriber`` and ``Diarizer`` (kernels A and B on the card), and the
-``APTPU_PROFILE_DIR`` hook records a ``torch.profiler`` Chrome trace of it.
+``APTPU_PROFILE_DIR`` hook records a ``torch.profiler`` Chrome trace of it,
+in which the job's stage spans and the Transcriber's and Diarizer's spans
+(``runtime/trace.py``) name what the host was doing beside the kernels.
 ``file_id`` may also be a local filesystem path (standalone, Drive-less
 operation).
 """

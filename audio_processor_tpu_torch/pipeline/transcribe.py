@@ -19,6 +19,13 @@ device (``ops/frontend.resample``).
 
 Slabs run one after another: PyTorch queues the card's work
 asynchronously, and the decode loop reads back one flag per token.
+``transcribe`` and ``transcribe_batch`` each open a request of the port's
+tracer (``runtime/trace.py``) whose summary the result carries as
+"trace": the spans ``transcribe.ingest``, ``.trim``, ``.slab_cut``,
+``.encode``, ``.language``, ``.decode``, ``.collect``, ``.seek_repair`` and
+``.segments`` under ``transcribe``, the decode loops' spans, and the
+counters ``transcribe.windows`` (real windows) and ``decode.rows`` (slab
+rows, padding included).
 
 Under a (data, model) mesh (``parallel/mesh.py``; one process per rank)
 every rank holds its shard of the parameters (``parallel/sharding.py``)
@@ -59,6 +66,7 @@ from ..ops import frontend
 from ..ops.kernels.log_mel import log_mel
 from ..parallel import mesh as mesh_lib
 from ..parallel import sharding as sharding_lib
+from ..runtime import trace
 from ..runtime.device import resolve_device
 from ..utils import timestamps as timestamps_lib
 from ..utils.timestamps import TimeMap
@@ -486,12 +494,13 @@ class Transcriber:
         """int16 (B, 480000) on the device -> encoder states (B, 1500, d).
         The log-mel is the fused CUDA kernel on the card, and so is encoder
         self-attention with use_pallas_encoder_attn."""
-        audio = chunks_i16.float() / 32768.0
-        mel = log_mel(audio, n_mels=self.cfg.n_mels)
-        return model_lib.encode(
-            self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype),
-            fused_attn=self.use_pallas_encoder_attn, mesh=self.mesh,
-        )
+        with trace.span("transcribe.encode"):
+            audio = chunks_i16.float() / 32768.0
+            mel = log_mel(audio, n_mels=self.cfg.n_mels)
+            return model_lib.encode(
+                self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype),
+                fused_attn=self.use_pallas_encoder_attn, mesh=self.mesh,
+            )
 
     # -- the data axis: a slab's rows split over the data ranks ----------------
 
@@ -539,11 +548,12 @@ class Transcriber:
         """This data rank's rows of an int16 (bucket, CHUNK_SAMPLES) slab, on
         the device; each pair is (audio index, chunk index), so the rows may
         come from several recordings (cross-request batching)."""
-        arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
-        for j, (fi, ci) in enumerate(pairs):
-            piece = audios[fi][ci * CHUNK_SAMPLES : (ci + 1) * CHUNK_SAMPLES]
-            arr[j, : len(piece)] = _f32_to_i16(piece)
-        return torch.from_numpy(np.ascontiguousarray(self._local(arr))).to(self.device)
+        with trace.span("transcribe.slab_cut"):
+            arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
+            for j, (fi, ci) in enumerate(pairs):
+                piece = audios[fi][ci * CHUNK_SAMPLES : (ci + 1) * CHUNK_SAMPLES]
+                arr[j, : len(piece)] = _f32_to_i16(piece)
+            return torch.from_numpy(np.ascontiguousarray(self._local(arr))).to(self.device)
 
     def _chunk_slab(self, audio: np.ndarray, chunk_ids: list[int], bucket: int) -> torch.Tensor:
         """This data rank's rows of the int16 slab of one recording's chunks."""
@@ -630,18 +640,22 @@ class Transcriber:
         lang = self._active_language if self._active_language is not None else self.language
         sot_seq = self._sot_seq(lang)
         ipt = self._initial_prompt_tokens
-        if ipt and (first_row_prompt or self.carry_initial_prompt):
-            b = audio_states.shape[0] * self._dp
-            per_row = [ipt] * b if self.carry_initial_prompt else [ipt] + [[]] * (b - 1)
-            rows, lens = decode_lib.build_prompt_rows(per_row, sot_seq, self.special, len(ipt))
-            return self._prompted_decode(audio_states, sot_seq, rows, lens, temperature, seed)
-        if self.beam_size > 0 and temperature == 0:
-            return self._beam_decode(audio_states, sot_seq)
-        return self._gather_result(decode_lib.greedy_decode(
-            self.params, self.cfg, audio_states, sot_sequence=sot_seq,
-            temperature=temperature, rng_seed=seed, best_of=self.best_of,
-            **self._decode_kw(),
-        ))
+        trace.count("decode.rows", audio_states.shape[0] * self._dp)
+        with trace.span("transcribe.decode"):
+            if ipt and (first_row_prompt or self.carry_initial_prompt):
+                b = audio_states.shape[0] * self._dp
+                per_row = [ipt] * b if self.carry_initial_prompt else [ipt] + [[]] * (b - 1)
+                rows, lens = decode_lib.build_prompt_rows(per_row, sot_seq, self.special,
+                                                          len(ipt))
+                return self._prompted_decode(audio_states, sot_seq, rows, lens, temperature,
+                                             seed)
+            if self.beam_size > 0 and temperature == 0:
+                return self._beam_decode(audio_states, sot_seq)
+            return self._gather_result(decode_lib.greedy_decode(
+                self.params, self.cfg, audio_states, sot_sequence=sot_seq,
+                temperature=temperature, rng_seed=seed, best_of=self.best_of,
+                **self._decode_kw(),
+            ))
 
     def _failed_rows(self, result, tokens: np.ndarray, n_real: int) -> np.ndarray:
         """Quality gate per chunk: low avg logprob or repetitive output."""
@@ -686,36 +700,38 @@ class Transcriber:
     ) -> tuple[np.ndarray, dict]:
         """One slab's decode to host, through the retry ladder and the
         no-speech gate.  Returns (tokens, per-window meta)."""
-        tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
-        lengths0 = result.lengths.cpu().numpy()[:n_real]
-        meta = {
-            "avg_logprob": result.sum_logprob.cpu().numpy()[:n_real].astype(np.float64)
-            / (lengths0 + 1),
-            "no_speech_prob": result.no_speech_prob.cpu().numpy()[:n_real]
-            .astype(np.float64),
-            "temperature": np.full(n_real, self.temperature, np.float64),
-        }
-        if self.enable_fallback:
-            # the initial prompt stays through the first window's retries
-            # (openai's decode_with_fallback); the retry rows are in
-            # ascending order, so that window is row 0 of the first batch
-            def redecode(sub_states, part, temp, lo):
-                return self._run_decode(
-                    sub_states, temp, seed=int(temp * 10),
-                    first_row_prompt=bool(first_slab and lo == 0 and part[0] == 0),
-                )
+        trace.count("transcribe.windows", n_real)
+        with trace.span("transcribe.collect"):
+            tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
+            lengths0 = result.lengths.cpu().numpy()[:n_real]
+            meta = {
+                "avg_logprob": result.sum_logprob.cpu().numpy()[:n_real].astype(np.float64)
+                / (lengths0 + 1),
+                "no_speech_prob": result.no_speech_prob.cpu().numpy()[:n_real]
+                .astype(np.float64),
+                "temperature": np.full(n_real, self.temperature, np.float64),
+            }
+            if self.enable_fallback:
+                # the initial prompt stays through the first window's retries
+                # (openai's decode_with_fallback); the retry rows are in
+                # ascending order, so that window is row 0 of the first batch
+                def redecode(sub_states, part, temp, lo):
+                    return self._run_decode(
+                        sub_states, temp, seed=int(temp * 10),
+                        first_row_prompt=bool(first_slab and lo == 0 and part[0] == 0),
+                    )
 
-            self._quality_retry(
-                result, tokens, n_real, audio_states, meta, redecode, "quality fallback"
+                self._quality_retry(
+                    result, tokens, n_real, audio_states, meta, redecode, "quality fallback"
+                )
+            # no-speech gate on the ACCEPTING decode's stats
+            if self.no_speech_threshold is not None:
+                silent = self._silent_rows(meta["no_speech_prob"], meta["avg_logprob"])
+                tokens[silent] = self.special.eot
+            meta["compression_ratio"] = np.asarray(
+                [self._row_compression_ratio(r) for r in tokens], np.float64
             )
-        # no-speech gate on the ACCEPTING decode's stats
-        if self.no_speech_threshold is not None:
-            silent = self._silent_rows(meta["no_speech_prob"], meta["avg_logprob"])
-            tokens[silent] = self.special.eot
-        meta["compression_ratio"] = np.asarray(
-            [self._row_compression_ratio(r) for r in tokens], np.float64
-        )
-        return tokens, meta
+            return tokens, meta
 
     def _quality_retry(self, result, tokens, n_real, states, meta, redecode, label) -> None:
         """Compacted temperature-ladder retries (openai's
@@ -880,13 +896,14 @@ class Transcriber:
         chunks rather than trusting chunk 0 alone.  ``audio_states``: this
         rank's rows of the slab; the k voter rows are gathered to every
         data rank."""
-        k = self._voting_k(len(chunk_ids))
-        # each data rank's first min(k, rows) rows, gathered: the slab's
-        # first k rows lead the result whether they sit on one rank or span
-        # several
-        voters = self._all_rows(audio_states[: min(k, audio_states.shape[0])])[:k]
-        _, probs = decode_lib.detect_language(self.params, self.cfg, voters, mesh=self.mesh)
-        return self._vote_language(audio, chunk_ids[:k], probs.cpu().numpy())
+        with trace.span("transcribe.language"):
+            k = self._voting_k(len(chunk_ids))
+            # each data rank's first min(k, rows) rows, gathered: the slab's
+            # first k rows lead the result whether they sit on one rank or
+            # span several
+            voters = self._all_rows(audio_states[: min(k, audio_states.shape[0])])[:k]
+            _, probs = decode_lib.detect_language(self.params, self.cfg, voters, mesh=self.mesh)
+            return self._vote_language(audio, chunk_ids[:k], probs.cpu().numpy())
 
     def _language_code(self) -> str | None:
         lang = self._active_language if self._active_language is not None else self.language
@@ -975,35 +992,42 @@ class Transcriber:
 
                 def run_prompted(sub_states, sub_hists, temp, seed):
                     n_pad = sub_states.shape[0] * self._dp - len(sub_hists)
-                    rows, lens = decode_lib.build_prompt_rows(
-                        self._carry_hists(sub_hists) + [[]] * n_pad, sot_seq,
-                        self.special, max_ctx,
-                    )
-                    return self._prompted_decode(sub_states, sot_seq, rows, lens, temp, seed)
+                    trace.count("decode.rows", sub_states.shape[0] * self._dp)
+                    with trace.span("transcribe.decode"):
+                        rows, lens = decode_lib.build_prompt_rows(
+                            self._carry_hists(sub_hists) + [[]] * n_pad, sot_seq,
+                            self.special, max_ctx,
+                        )
+                        return self._prompted_decode(sub_states, sot_seq, rows, lens, temp,
+                                                     seed)
 
                 base_hists = hists if self.temperature <= 0.5 else [[] for _ in hists]
                 result = run_prompted(states, base_hists, self.temperature, 0)
                 n_real = len(ids)
-                tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
-                lengths = result.lengths.cpu().numpy()[:n_real]
-                meta = {
-                    "avg_logprob": result.sum_logprob.cpu().numpy()[:n_real] / (lengths + 1),
-                    "no_speech_prob": result.no_speech_prob.cpu().numpy()[:n_real]
-                    .astype(np.float64),
-                    "temperature": np.full(n_real, self.temperature, np.float64),
-                }
-                if self.enable_fallback:
-                    def redecode(sub_states, part, temp, lo2):
-                        sub_hists = [hists[i] if temp <= 0.5 else [] for i in part]
-                        return run_prompted(sub_states, sub_hists, temp, int(temp * 10))
+                trace.count("transcribe.windows", n_real)
+                with trace.span("transcribe.collect"):
+                    tokens = result.tokens.cpu().numpy()[:n_real].astype(np.int32)
+                    lengths = result.lengths.cpu().numpy()[:n_real]
+                    meta = {
+                        "avg_logprob": result.sum_logprob.cpu().numpy()[:n_real]
+                        / (lengths + 1),
+                        "no_speech_prob": result.no_speech_prob.cpu().numpy()[:n_real]
+                        .astype(np.float64),
+                        "temperature": np.full(n_real, self.temperature, np.float64),
+                    }
+                    if self.enable_fallback:
+                        def redecode(sub_states, part, temp, lo2):
+                            sub_hists = [hists[i] if temp <= 0.5 else [] for i in part]
+                            return run_prompted(sub_states, sub_hists, temp, int(temp * 10))
 
-                    self._quality_retry(
-                        result, tokens, n_real, states, meta, redecode,
-                        "conditioned fallback",
-                    )
-                if self.no_speech_threshold is not None:
-                    silent = self._silent_rows(meta["no_speech_prob"], meta["avg_logprob"])
-                    tokens[silent] = self.special.eot
+                        self._quality_retry(
+                            result, tokens, n_real, states, meta, redecode,
+                            "conditioned fallback",
+                        )
+                    if self.no_speech_threshold is not None:
+                        silent = self._silent_rows(meta["no_speech_prob"],
+                                                   meta["avg_logprob"])
+                        tokens[silent] = self.special.eot
                 for j, ci in enumerate(ids):
                     token_rows[ci] = tokens[j]
                     for key in ("avg_logprob", "no_speech_prob", "temperature"):
@@ -1060,48 +1084,61 @@ class Transcriber:
     ) -> dict:
         """Full transcription of arbitrary-length mono audio at
         ``sample_rate`` (resampled to 16 kHz on the device) or a path.
-        Returns {"text", "segments", "duration", "rtf_x"[, "language"]},
-        timestamps in the ORIGINAL timeline even when silence was removed
-        or clips were selected."""
+        Returns {"text", "segments", "duration", "rtf_x", "trace"[,
+        "language"]}, timestamps in the ORIGINAL timeline even when silence
+        was removed or clips were selected.  "trace" is the call's
+        ``runtime.trace`` summary: seconds of each stage span and the
+        counters (windows, decode rows, decode steps)."""
+        with trace.request() as record:
+            with trace.span("transcribe"):
+                out = self._transcribe(audio, sample_rate, remove_silence, clip_timestamps,
+                                       time_map, progress, on_segment)
+        out["trace"] = record.summary()
+        return out
+
+    def _transcribe(self, audio, sample_rate, remove_silence, clip_timestamps, time_map,
+                    progress, on_segment) -> dict:
         t0 = time.perf_counter()
-        audio, sample_rate = ingest.load_if_path(audio, sample_rate)
-        audio = np.asarray(audio)
-        self._active_language = None  # re-detected per call
-        duration_s = len(audio) / sample_rate
-        if sample_rate != 16_000:
-            audio = frontend.resample_host(audio, sample_rate, device=self.device)
+        with trace.span("transcribe.ingest"):
+            audio, sample_rate = ingest.load_if_path(audio, sample_rate)
+            audio = np.asarray(audio)
+            self._active_language = None  # re-detected per call
+            duration_s = len(audio) / sample_rate
+            if sample_rate != 16_000:
+                audio = frontend.resample_host(audio, sample_rate, device=self.device)
 
         if clip_timestamps and time_map is not None:
             raise ValueError(
                 "clip_timestamps cannot be combined with an explicit time_map"
             )
-        if time_map is None:
-            clip_map = None
-            if clip_timestamps:
-                clips = []
-                for s, e in clip_timestamps:
-                    s2 = min(max(0.0, float(s)), duration_s)
-                    e2 = min(max(0.0, float(e)), duration_s)
-                    if e2 > s2:
-                        clips.append((s2, e2))
-                if not clips:
-                    raise ValueError(
-                        f"clip_timestamps {clip_timestamps!r} selects no audio "
-                        f"within the {duration_s:.1f}s recording"
+        with trace.span("transcribe.trim"):
+            if time_map is None:
+                clip_map = None
+                if clip_timestamps:
+                    clips = []
+                    for s, e in clip_timestamps:
+                        s2 = min(max(0.0, float(s)), duration_s)
+                        e2 = min(max(0.0, float(e)), duration_s)
+                        if e2 > s2:
+                            clips.append((s2, e2))
+                    if not clips:
+                        raise ValueError(
+                            f"clip_timestamps {clip_timestamps!r} selects no audio "
+                            f"within the {duration_s:.1f}s recording"
+                        )
+                    clip_map = TimeMap(clips)
+                    audio = np.concatenate(
+                        [audio[int(s * 16_000): int(e * 16_000)] for s, e in clips]
                     )
-                clip_map = TimeMap(clips)
-                audio = np.concatenate(
-                    [audio[int(s * 16_000): int(e * 16_000)] for s, e in clips]
-                )
-            if remove_silence and len(audio) > 2 * 16_000:
-                audio, intervals = frontend.trim_silence_host(audio)
-                if clip_map is not None:
-                    intervals = timestamps_lib.compose_intervals(clip_map, intervals)
-                time_map = TimeMap(intervals)
-            elif clip_map is not None:
-                time_map = clip_map
-            else:
-                time_map = TimeMap.identity(duration_s)
+                if remove_silence and len(audio) > 2 * 16_000:
+                    audio, intervals = frontend.trim_silence_host(audio)
+                    if clip_map is not None:
+                        intervals = timestamps_lib.compose_intervals(clip_map, intervals)
+                    time_map = TimeMap(intervals)
+                elif clip_map is not None:
+                    time_map = clip_map
+                else:
+                    time_map = TimeMap.identity(duration_s)
 
         n_chunks = max(1, math.ceil(len(audio) / CHUNK_SAMPLES))
         slab = self._round(min(_bucket(n_chunks), self._slab_cap))
@@ -1109,12 +1146,14 @@ class Transcriber:
             tokens, cond_states, chunk_meta = self._transcribe_conditioned(
                 audio, n_chunks, progress, on_segment=on_segment, time_map=time_map,
             )
-            tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
-            return self._finalize(
-                tokens, n_chunks, duration_s, time_map, t0, progress,
-                states_per_slab=cond_states, slab=slab, audio=audio, patches=patches,
-                chunk_meta=chunk_meta,
-            )
+            with trace.span("transcribe.seek_repair"):
+                tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
+            with trace.span("transcribe.segments"):
+                return self._finalize(
+                    tokens, n_chunks, duration_s, time_map, t0, progress,
+                    states_per_slab=cond_states, slab=slab, audio=audio, patches=patches,
+                    chunk_meta=chunk_meta,
+                )
         n_slabs = math.ceil(n_chunks / slab)
         content_s = len(audio) / 16_000.0
         token_rows: list[np.ndarray] = []
@@ -1154,12 +1193,14 @@ class Transcriber:
 
         tokens = np.concatenate(token_rows, axis=0)
         chunk_meta = {k: np.concatenate([m[k] for m in meta_rows]) for k in meta_rows[0]}
-        tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
-        return self._finalize(
-            tokens, n_chunks, duration_s, time_map, t0, progress,
-            states_per_slab=states_per_slab, slab=slab, audio=audio, patches=patches,
-            chunk_meta=chunk_meta,
-        )
+        with trace.span("transcribe.seek_repair"):
+            tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
+        with trace.span("transcribe.segments"):
+            return self._finalize(
+                tokens, n_chunks, duration_s, time_map, t0, progress,
+                states_per_slab=states_per_slab, slab=slab, audio=audio, patches=patches,
+                chunk_meta=chunk_meta,
+            )
 
     def _word_pass(self, states_per_slab, slab, tokens, n_chunks, offsets, durations,
                    patches, time_map) -> list[dict]:
@@ -1304,31 +1345,32 @@ class Transcriber:
         (this rank's rows of a slab's states, the chunk's row in the slab)
         for every voter chunk, so the decode can reuse those encoder rows
         (for 1-2 window clips the voter rows are the decode rows)."""
-        rows: list[tuple[int, int]] = []
-        spans: list[tuple[int, int]] = []  # (first row, k) per file
-        for fi, n in enumerate(n_chunks_per):
-            # the single-file path votes over its first decode slab
-            slab_f = self._round(min(_bucket(n), self._slab_cap))
-            k = self._voting_k(min(n, slab_f))
-            spans.append((len(rows), k))
-            rows += [(fi, ci) for ci in range(k)]
-        cap = self._slab_cap
-        prob_parts: list[np.ndarray] = []
-        state_bank: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
-        for lo in range(0, len(rows), cap):
-            part = rows[lo : lo + cap]
-            bucket = self._round(min(_bucket(len(part)), cap))
-            padded = part + [part[-1]] * (bucket - len(part))
-            states = self._frontend_encode(self._chunk_slab_pairs(audios, padded, bucket))
-            _, probs = decode_lib.detect_language(self.params, self.cfg, states, mesh=self.mesh)
-            prob_parts.append(self._all_rows(probs).cpu().numpy()[: len(part)])
-            for j, pair in enumerate(part):
-                state_bank[pair] = (states, j)
-        all_probs = np.concatenate(prob_parts, axis=0)
-        return [
-            self._vote_language(audios[fi], list(range(k)), all_probs[lo : lo + k])
-            for fi, (lo, k) in enumerate(spans)
-        ], state_bank
+        with trace.span("transcribe.language"):
+            rows: list[tuple[int, int]] = []
+            spans: list[tuple[int, int]] = []  # (first row, k) per file
+            for fi, n in enumerate(n_chunks_per):
+                # the single-file path votes over its first decode slab
+                slab_f = self._round(min(_bucket(n), self._slab_cap))
+                k = self._voting_k(min(n, slab_f))
+                spans.append((len(rows), k))
+                rows += [(fi, ci) for ci in range(k)]
+            cap = self._slab_cap
+            prob_parts: list[np.ndarray] = []
+            state_bank: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+            for lo in range(0, len(rows), cap):
+                part = rows[lo : lo + cap]
+                bucket = self._round(min(_bucket(len(part)), cap))
+                padded = part + [part[-1]] * (bucket - len(part))
+                states = self._frontend_encode(self._chunk_slab_pairs(audios, padded, bucket))
+                _, probs = decode_lib.detect_language(self.params, self.cfg, states, mesh=self.mesh)
+                prob_parts.append(self._all_rows(probs).cpu().numpy()[: len(part)])
+                for j, pair in enumerate(part):
+                    state_bank[pair] = (states, j)
+            all_probs = np.concatenate(prob_parts, axis=0)
+            return [
+                self._vote_language(audios[fi], list(range(k)), all_probs[lo : lo + k])
+                for fi, (lo, k) in enumerate(spans)
+            ], state_bank
 
     @property
     def supports_shared_slabs(self) -> bool:
@@ -1351,18 +1393,19 @@ class Transcriber:
         """This rank's rows of a (bucket, ...) encoder-states slab assembled
         from banked rows (the encoder is row-independent, so they equal a
         fresh encode), padded with the first row."""
-        uniq: list[torch.Tensor] = []
-        offsets: dict[int, int] = {}
-        rows: list[int] = []
-        for pair in pairs:
-            src, r = bank[pair]
-            if id(src) not in offsets:
-                offsets[id(src)] = sum(int(s.shape[0]) * self._dp for s in uniq)
-                uniq.append(src)
-            rows.append(offsets[id(src)] + r)
-        rows += [rows[0]] * (bucket - len(rows))
-        whole = torch.cat([self._all_rows(s) for s in uniq], dim=0)
-        return whole[torch.from_numpy(np.asarray(self._local(rows))).to(whole.device)]
+        with trace.span("transcribe.slab_cut"):
+            uniq: list[torch.Tensor] = []
+            offsets: dict[int, int] = {}
+            rows: list[int] = []
+            for pair in pairs:
+                src, r = bank[pair]
+                if id(src) not in offsets:
+                    offsets[id(src)] = sum(int(s.shape[0]) * self._dp for s in uniq)
+                    uniq.append(src)
+                rows.append(offsets[id(src)] + r)
+            rows += [rows[0]] * (bucket - len(rows))
+            whole = torch.cat([self._all_rows(s) for s in uniq], dim=0)
+            return whole[torch.from_numpy(np.asarray(self._local(rows))).to(whole.device)]
 
     def transcribe_batch(
         self,
@@ -1385,7 +1428,18 @@ class Transcriber:
         called as on_segment(file_index, segment) as each slab's decode
         lands.  Options that need per-file decode state inside a slab
         (supports_shared_slabs) fall back to one transcribe() per file.
+        Each result's "trace" is the summary of the whole batch, or of its
+        own transcribe() where the batch falls back to those.
         """
+        with trace.request() as record:
+            with trace.span("transcribe"):
+                results = self._transcribe_batch(audios, sample_rate, remove_silence,
+                                                 on_segment)
+        for r in results:
+            r.setdefault("trace", record.summary())
+        return results
+
+    def _transcribe_batch(self, audios, sample_rate, remove_silence, on_segment) -> list[dict]:
         t0 = time.perf_counter()
         if not audios:
             return []
@@ -1407,16 +1461,18 @@ class Transcriber:
         durations_s: list[float] = []
         n_chunks_per: list[int] = []
         for audio in audios:
-            audio, sr = ingest.load_if_path(audio, sample_rate)
-            audio = np.asarray(audio, np.float32)
-            duration_s = len(audio) / sr
-            if sr != 16_000:
-                audio = frontend.resample_host(audio, sr, device=self.device)
-            if remove_silence and len(audio) > 2 * 16_000:
-                audio, intervals = frontend.trim_silence_host(audio)
-                time_map = TimeMap(intervals)
-            else:
-                time_map = TimeMap.identity(duration_s)
+            with trace.span("transcribe.ingest"):
+                audio, sr = ingest.load_if_path(audio, sample_rate)
+                audio = np.asarray(audio, np.float32)
+                duration_s = len(audio) / sr
+                if sr != 16_000:
+                    audio = frontend.resample_host(audio, sr, device=self.device)
+            with trace.span("transcribe.trim"):
+                if remove_silence and len(audio) > 2 * 16_000:
+                    audio, intervals = frontend.trim_silence_host(audio)
+                    time_map = TimeMap(intervals)
+                else:
+                    time_map = TimeMap.identity(duration_s)
             trimmed.append(audio)
             time_maps.append(time_map)
             durations_s.append(duration_s)
@@ -1495,10 +1551,13 @@ class Transcriber:
                         parts.append((batch_pairs[idx[0]][1], states[sel]))
                 parts.sort(key=lambda p: p[0])
                 states_per_slab = [self._job_states(torch.cat([st for _, st in parts]))]
-            tokens, patches = self._apply_seek_repair(tokens, n_chunks_per[fi], trimmed[fi])
-            results.append(self._finalize(
-                tokens, n_chunks_per[fi], durations_s[fi], time_maps[fi], t0, None,
-                states_per_slab=states_per_slab, slab=max(1, n_chunks_per[fi]),
-                audio=trimmed[fi], patches=patches, chunk_meta=meta_by_file[fi],
-            ))
+            with trace.span("transcribe.seek_repair"):
+                tokens, patches = self._apply_seek_repair(tokens, n_chunks_per[fi],
+                                                          trimmed[fi])
+            with trace.span("transcribe.segments"):
+                results.append(self._finalize(
+                    tokens, n_chunks_per[fi], durations_s[fi], time_maps[fi], t0, None,
+                    states_per_slab=states_per_slab, slab=max(1, n_chunks_per[fi]),
+                    audio=trimmed[fi], patches=patches, chunk_meta=meta_by_file[fi],
+                ))
         return results

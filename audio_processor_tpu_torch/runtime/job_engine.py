@@ -29,7 +29,8 @@ from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime, timezone
 from typing import Any, Callable
 
-from ..utils.constants import JOB_STATUS
+from ..utils.constants import JOB_STATUS, STAGES
+from . import trace
 from .job_store import ACTIVE_STATUSES, make_store
 
 logger = logging.getLogger(__name__)
@@ -78,13 +79,18 @@ def _worker_is_alive(worker: str) -> bool:
 
 
 class JobContext:
-    """Handle given to pipeline stages: progress reporting + cancel checks."""
+    """Handle given to pipeline stages: progress reporting + cancel checks.
+
+    Each ``stage()`` closes the span of the stage before it and opens
+    ``job.<stage>`` (``utils/constants.py`` STAGES) in the job's trace
+    (``runtime/trace.py``), so the Transcriber's and the Diarizer's spans
+    nest under the stage that runs them."""
 
     def __init__(self, engine: "JobEngine", job_id: str):
         self.engine = engine
         self.job_id = job_id
         self.partial: dict[str, Any] = {}  # salvaged into failure results
-        self._marks: list[tuple[str, float]] = []  # stage observability
+        self._stage = None  # the open stage's span
 
     def progress(self, value: int, message: str = "") -> None:
         self.engine.update_progress(self.job_id, value, message)
@@ -94,26 +100,31 @@ class JobContext:
             raise JobCancelled(self.job_id)
 
     def stage(self, value: int, message: str = "") -> None:
-        """Cancel checkpoint + progress update + stage-timing mark.
+        """Cancel checkpoint + progress update + the stage's span.
 
         Per-stage wall times land in the job record as `stage_timings`
         (SURVEY.md §5.1: the reference has no tracing at all; its only
         observability is the progress int itself)."""
         self.check_cancelled()
-        self._marks.append((message or f"progress_{value}", time.perf_counter()))
+        self.end_stage()
+        self._stage = trace.span("job." + STAGES.get(value, f"progress_{value}"))
+        self._stage.__enter__()
         self.progress(value, message)
 
+    def end_stage(self) -> None:
+        """Close the open stage's span, if any."""
+        if self._stage is not None:
+            self._stage.__exit__(None, None, None)
+            self._stage = None
+
     def stage_timings(self) -> dict[str, float]:
-        """Seconds spent between consecutive stage() calls."""
-        out: dict[str, float] = {}
-        for (name, t0), (_, t1) in zip(self._marks, self._marks[1:]):
-            out[name] = round(out.get(name, 0.0) + (t1 - t0), 3)
-        if self._marks:
-            last_name, last_t = self._marks[-1]
-            out[last_name] = round(
-                out.get(last_name, 0.0) + (time.perf_counter() - last_t), 3
-            )
-        return out
+        """Seconds of each stage (``job.<stage>``), from the job's
+        trace, in the order the stages ran."""
+        rec = trace.current()
+        if rec is None:
+            return {}
+        return {name: round(s["total_s"], 3) for name, s in rec.summary()["spans"].items()
+                if name.startswith("job.")}
 
 
 class JobEngine:
@@ -238,57 +249,62 @@ class JobEngine:
         fn: Callable[[JobContext], dict],
         failure_result: Callable[[Exception, dict], dict] | None = None,
     ) -> None:
-        ctx = JobContext(self, job_id)
-        try:
-            if self.store.is_cancel_requested(job_id):
-                raise JobCancelled(job_id)
-            self.store.update(
-                job_id,
-                status=JOB_STATUS["PROCESSING"],
-                message="Processing started",
-                updated_at=_utcnow(),
-            )
-            result = fn(ctx)
-            self.store.update(
-                job_id,
-                status=JOB_STATUS["COMPLETED"],
-                progress=100,
-                message="Completed",
-                result=result,
-                stage_timings=ctx.stage_timings(),
-                completed_at=_utcnow(),
-                updated_at=_utcnow(),
-            )
-        except JobCancelled:
-            logger.info("job %s cancelled", job_id)
-            self.store.update(
-                job_id,
-                status=JOB_STATUS["CANCELLED"],
-                message="Job cancelled by user",
-                cancelled_at=_utcnow(),
-                updated_at=_utcnow(),
-            )
-        except Exception as exc:  # noqa: BLE001 — job boundary
-            logger.error("job %s failed: %s\n%s", job_id, exc, traceback.format_exc())
-            fields: dict[str, Any] = {
-                "status": JOB_STATUS["FAILED"],
-                "message": f"Processing failed: {exc}",
-                "error": str(exc),
-                "completed_at": _utcnow(),
-                "updated_at": _utcnow(),
-            }
-            if ctx.partial:  # salvage partial results (audio_processor.py:1360-1374)
-                fields["partial_result"] = dict(ctx.partial)
-            if failure_result is not None:
-                try:
-                    fields["result"] = failure_result(exc, dict(ctx.partial))
-                except Exception:  # noqa: BLE001 — salvage must not mask the error
-                    logger.exception("failure_result callback raised")
-            self.store.update(job_id, **fields)
-        finally:
-            self.store.clear_cancel(job_id)
-            with self._futures_lock:
-                self._futures.pop(job_id, None)
+        with trace.request(job_id):
+            ctx = JobContext(self, job_id)
+            try:
+                if self.store.is_cancel_requested(job_id):
+                    raise JobCancelled(job_id)
+                self.store.update(
+                    job_id,
+                    status=JOB_STATUS["PROCESSING"],
+                    message="Processing started",
+                    updated_at=_utcnow(),
+                )
+                with trace.span("job"):
+                    try:
+                        result = fn(ctx)
+                    finally:
+                        ctx.end_stage()
+                self.store.update(
+                    job_id,
+                    status=JOB_STATUS["COMPLETED"],
+                    progress=100,
+                    message="Completed",
+                    result=result,
+                    stage_timings=ctx.stage_timings(),
+                    completed_at=_utcnow(),
+                    updated_at=_utcnow(),
+                )
+            except JobCancelled:
+                logger.info("job %s cancelled", job_id)
+                self.store.update(
+                    job_id,
+                    status=JOB_STATUS["CANCELLED"],
+                    message="Job cancelled by user",
+                    cancelled_at=_utcnow(),
+                    updated_at=_utcnow(),
+                )
+            except Exception as exc:  # noqa: BLE001 — job boundary
+                logger.error("job %s failed: %s\n%s", job_id, exc, traceback.format_exc())
+                fields: dict[str, Any] = {
+                    "status": JOB_STATUS["FAILED"],
+                    "message": f"Processing failed: {exc}",
+                    "error": str(exc),
+                    "completed_at": _utcnow(),
+                    "updated_at": _utcnow(),
+                }
+                if ctx.partial:  # salvage partial results (audio_processor.py:1360-1374)
+                    fields["partial_result"] = dict(ctx.partial)
+                if failure_result is not None:
+                    try:
+                        fields["result"] = failure_result(exc, dict(ctx.partial))
+                    except Exception:  # noqa: BLE001 — salvage must not mask the error
+                        logger.exception("failure_result callback raised")
+                self.store.update(job_id, **fields)
+            finally:
+                self.store.clear_cancel(job_id)
+                with self._futures_lock:
+                    self._futures.pop(job_id, None)
 
     def recover_orphans(self) -> int:
         """Mark jobs left 'processing'/'pending' by a dead process as failed.
@@ -454,23 +470,26 @@ class JobEngine:
             return self._copy_metrics(cached[1])
         records = self.store.list()
         by_status: dict[str, int] = {}
-        rtfs: list[float] = []
+        audio_s = processing_s = 0.0
         stage_totals: dict[str, list[float]] = {}
         for rec in records:
             by_status[rec.get("status", "?")] = by_status.get(rec.get("status", "?"), 0) + 1
             result = rec.get("result") or {}
-            if isinstance(result, dict) and result.get("rtf_x"):
-                rtfs.append(float(result["rtf_x"]))
+            if (rec.get("status") == JOB_STATUS["COMPLETED"] and isinstance(result, dict)
+                    and result.get("processing_s")):
+                audio_s += float(result.get("duration_s") or 0.0)
+                processing_s += float(result["processing_s"])
             for name, secs in (rec.get("stage_timings") or {}).items():
                 stage_totals.setdefault(name, []).append(float(secs))
         out: dict = {
             "jobs_total": len(records),
             "jobs_by_status": by_status,
         }
-        if rtfs:
-            rtfs.sort()
-            out["rtf_x_p50"] = rtfs[len(rtfs) // 2]
-            out["rtf_x_mean"] = round(sum(rtfs) / len(rtfs), 2)
+        if processing_s > 0:
+            # a rate over the completed jobs: the ratio of the sums
+            out["audio_seconds_total"] = round(audio_s, 3)
+            out["processing_seconds_total"] = round(processing_s, 3)
+            out["rtf_x"] = round(audio_s / processing_s, 2)
         if stage_totals:
             out["stage_seconds_mean"] = {
                 k: round(sum(v) / len(v), 3) for k, v in stage_totals.items()

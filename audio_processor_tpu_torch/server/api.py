@@ -262,11 +262,12 @@ def make_api_blueprint(services: Any, url_prefix: str = "/api") -> Blueprint:
         """JSON by default; ?format=prometheus returns the text exposition
         format so a Prometheus scraper can point straight at the service."""
         m = engine.metrics()
-        from .openai_api import dynamic_batch_stats
+        from .openai_api import dynamic_batch_stats, wait_stats
 
         batch_stats = dynamic_batch_stats()
         if batch_stats["batches"]:
             m["v1_dynamic_batching"] = batch_stats
+        waits = m["v1_waits"] = wait_stats()
         if request.query.get("format") != "prometheus":
             return {"success": True, "metrics": m}
         lines = [
@@ -278,13 +279,17 @@ def make_api_blueprint(services: Any, url_prefix: str = "/api") -> Blueprint:
         ]
         for status, n in sorted(m.get("jobs_by_status", {}).items()):
             lines.append(f'aptpu_jobs{{status="{status}"}} {n}')
-        if "rtf_x_p50" in m:
+        if "rtf_x" in m:
             lines += [
-                "# HELP aptpu_rtf_x_p50 Median end-to-end real-time factor",
-                "# TYPE aptpu_rtf_x_p50 gauge",
-                f"aptpu_rtf_x_p50 {m['rtf_x_p50']}",
-                "# TYPE aptpu_rtf_x_mean gauge",
-                f"aptpu_rtf_x_mean {m['rtf_x_mean']}",
+                "# HELP aptpu_audio_seconds_total Audio seconds of the completed jobs",
+                "# TYPE aptpu_audio_seconds_total counter",
+                f"aptpu_audio_seconds_total {m['audio_seconds_total']}",
+                "# HELP aptpu_processing_seconds_total Wall seconds of the completed jobs",
+                "# TYPE aptpu_processing_seconds_total counter",
+                f"aptpu_processing_seconds_total {m['processing_seconds_total']}",
+                "# HELP aptpu_rtf_x Audio seconds over processing seconds, completed jobs",
+                "# TYPE aptpu_rtf_x gauge",
+                f"aptpu_rtf_x {m['rtf_x']}",
             ]
         if batch_stats["batches"]:
             lines += [
@@ -294,6 +299,20 @@ def make_api_blueprint(services: Any, url_prefix: str = "/api") -> Blueprint:
                 "# TYPE aptpu_v1_dynamic_batch_files_total counter",
                 f"aptpu_v1_dynamic_batch_files_total {batch_stats['files']}",
             ]
+        lines += [
+            "# HELP aptpu_v1_queue_wait_seconds /v1 uploads' wait in a batch window or for "
+            "its result",
+            "# TYPE aptpu_v1_queue_wait_seconds summary",
+            f"aptpu_v1_queue_wait_seconds_sum {waits['queue_wait_seconds_sum']}",
+            f"aptpu_v1_queue_wait_seconds_count {waits['queue_wait_count']}",
+            "# HELP aptpu_v1_slot_wait_seconds /v1 decodes' wait for a decode slot",
+            "# TYPE aptpu_v1_slot_wait_seconds summary",
+            f"aptpu_v1_slot_wait_seconds_sum {waits['slot_wait_seconds_sum']}",
+            f"aptpu_v1_slot_wait_seconds_count {waits['slot_wait_count']}",
+            "# HELP aptpu_v1_decode_slots_in_use /v1 decode slots held now",
+            "# TYPE aptpu_v1_decode_slots_in_use gauge",
+            f"aptpu_v1_decode_slots_in_use {waits['decode_slots_in_use']}",
+        ]
         if "stage_seconds_mean" in m:
             lines += [
                 "# HELP aptpu_stage_seconds_mean Mean wall seconds per pipeline stage",

@@ -17,6 +17,12 @@ and moves nothing that is already cast and on its device, and keeps
 sharded parameters as they are, so a replaced copy shares the weights.
 ``timestamp_granularities[]=word`` turns on ``word_timestamps`` for the
 request.
+
+Each upload is a request of the port's tracer (``runtime/trace.py``): the
+batch window a file waits in (``v1.batch_wait``), the wait for a decode
+slot (``v1.slot_wait``), the batches and the files they carried (the
+counters ``v1.batches`` and ``v1.files``) and the Transcriber's own spans;
+``/api/metrics`` reads their process-wide totals.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import threading
 import time
 from typing import Any
 
+from ..runtime import trace
 from .web import Blueprint, Request, Response, StreamingResponse, jsonify
 
 logger = logging.getLogger(__name__)
@@ -68,7 +75,7 @@ def _acquire_decode_slot() -> bool:
     limit = int(os.environ.get("APTPU_MAX_CONCURRENT_DECODES", "2"))
     timeout_s = float(os.environ.get("APTPU_DECODE_QUEUE_TIMEOUT_S", "60"))
     deadline = time.monotonic() + timeout_s
-    with _decode_cond:
+    with trace.span("v1.slot_wait"), _decode_cond:
         while _decode_slots["active"] >= limit:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
@@ -76,6 +83,12 @@ def _acquire_decode_slot() -> bool:
             _decode_cond.wait(remaining)
         _decode_slots["active"] += 1
         return True
+
+
+def decode_slots_in_use() -> int:
+    """Decode slots held right now (a gauge)."""
+    with _decode_cond:
+        return _decode_slots["active"]
 
 
 def _release_decode_slot() -> None:
@@ -117,20 +130,31 @@ class _OpenBatch:
 _open_batches: dict[Any, _OpenBatch] = {}
 _batch_lock = threading.Lock()
 
-# observability: batches formed / files coalesced (served by /api/metrics)
-_batch_stats = {"batches": 0, "files": 0}
-
 
 def dynamic_batch_stats() -> dict:
     """Counters for the dynamic batcher: batches dispatched, files they
-    carried, mean occupancy.  Zeroes when batching is off/unused."""
-    with _batch_lock:
-        b, f = _batch_stats["batches"], _batch_stats["files"]
+    carried, mean occupancy (the tracer's process-wide ``v1.batches`` and
+    ``v1.files``).  Zeroes when batching is off/unused."""
+    counters = trace.totals()["counters"]
+    b, f = counters.get("v1.batches", 0), counters.get("v1.files", 0)
     return {
         "batches": b,
         "files": f,
         "mean_files_per_batch": round(f / b, 3) if b else 0.0,
     }
+
+
+def wait_stats() -> dict:
+    """Seconds uploads waited and how many waits, over the process: in a
+    batch window or for its result (``v1.batch_wait``), and for a decode
+    slot (``v1.slot_wait``); and the decode slots held now."""
+    spans = trace.totals()["spans"]
+    out = {}
+    for key, name in (("queue_wait", "v1.batch_wait"), ("slot_wait", "v1.slot_wait")):
+        s = spans.get(name, {"total_s": 0.0, "count": 0})
+        out[f"{key}_seconds_sum"], out[f"{key}_count"] = round(s["total_s"], 6), s["count"]
+    out["decode_slots_in_use"] = decode_slots_in_use()
+    return out
 
 
 def _coalesced_transcribe(key, t, audio) -> dict:
@@ -157,7 +181,8 @@ def _coalesced_transcribe(key, t, audio) -> dict:
         try:
             # collection window; a full batch ends it early (no point
             # holding max_files responses for the rest of the window)
-            batch.full.wait(wait_s)
+            with trace.span("v1.batch_wait"):
+                batch.full.wait(wait_s)
             with _batch_lock:
                 batch.closed = True
                 if _open_batches.get(key) is batch:
@@ -183,9 +208,8 @@ def _coalesced_transcribe(key, t, audio) -> dict:
                 e.result = r
             # counted only on a delivered decode: a 503/failed dispatch
             # must not inflate the coalescing-throughput metrics
-            with _batch_lock:
-                _batch_stats["batches"] += 1
-                _batch_stats["files"] += len(entries)
+            trace.count("v1.batches")
+            trace.count("v1.files", len(entries))
         except BaseException as exc:  # noqa: BLE001 — fan the failure out
             with _batch_lock:  # close FIRST so no newcomer misses the error
                 batch.closed = True
@@ -210,7 +234,9 @@ def _coalesced_transcribe(key, t, audio) -> dict:
         timeout_s = float(
             os.environ.get("APTPU_DECODE_QUEUE_TIMEOUT_S", "60")
         ) + 3600.0
-        if not entry.event.wait(timeout_s):
+        with trace.span("v1.batch_wait"):
+            delivered = entry.event.wait(timeout_s)
+        if not delivered:
             raise _DecodeBusy()
     if entry.error is not None:
         raise entry.error
@@ -296,15 +322,17 @@ def make_openai_blueprint(services: Any) -> Blueprint:
 
     @bp.route("/audio/transcriptions", methods=("POST",))
     def transcriptions(request: Request):
-        return _check_auth(request) or _handle(
-            request, services, task="transcribe"
-        )
+        with trace.request():
+            return _check_auth(request) or _handle(
+                request, services, task="transcribe"
+            )
 
     @bp.route("/audio/translations", methods=("POST",))
     def translations(request: Request):
-        return _check_auth(request) or _handle(
-            request, services, task="translate"
-        )
+        with trace.request():
+            return _check_auth(request) or _handle(
+                request, services, task="translate"
+            )
 
     @bp.route("/models", methods=("GET",))
     def models(request: Request):
@@ -349,7 +377,7 @@ def _stream_transcription(t, audio) -> StreamingResponse:
 
     q: queue.Queue = queue.Queue()
 
-    def run():
+    def stream_decode():
         got_slot = False
         try:
             got_slot = _acquire_decode_slot()
@@ -374,6 +402,10 @@ def _stream_transcription(t, audio) -> StreamingResponse:
             if got_slot:
                 _release_decode_slot()
             q.put(None)
+
+    def run():
+        with trace.request():
+            stream_decode()
 
     threading.Thread(target=run, daemon=True).start()
 

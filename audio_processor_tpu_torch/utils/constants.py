@@ -33,3 +33,20 @@ PROGRESS = {
     "rename": 95,
     "done": 100,
 }
+
+# The work of the job stage that starts at each checkpoint.  A stage's span
+# is job.<name> (JobContext.stage), so stage_timings and the
+# aptpu_stage_seconds_mean labels name the work and not the checkpoint
+# (the stage at PROGRESS["convert"] transcribes, diarizes and fuses).
+STAGES = {
+    PROGRESS["start"]: "metadata",
+    PROGRESS["attachments"]: "attachments",
+    PROGRESS["download"]: "download",
+    PROGRESS["preprocess"]: "decode_audio",
+    PROGRESS["convert"]: "transcribe",
+    PROGRESS["transcribe"]: "speakers",
+    PROGRESS["identify_speakers"]: "transcript",
+    PROGRESS["summary"]: "summary",
+    PROGRESS["notion"]: "notion",
+    PROGRESS["rename"]: "rename",
+}

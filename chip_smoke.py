@@ -1088,7 +1088,7 @@ def _tp_rank(rank, world, tp, port, backend, results, profile) -> None:
         torch.cuda.synchronize()
         res["launches"] = {c.__name__: c.launches for c in counters}
         res["cold_rtf_x"], res["warm_rtf_x"] = cold["rtf_x"], warm["rtf_x"]
-        res["warm"] = {k: v for k, v in warm.items() if k != "rtf_x"}
+        res["warm"] = {k: v for k, v in warm.items() if k not in ("rtf_x", "trace")}
         res["tokens"] = np.concatenate(seen)
         if profile and rank == 0:
             res["profile"] = profile_decode(lambda: tr.transcribe(audio),
@@ -2093,13 +2093,12 @@ SERVE_MODEL = "small"
 SERVE_MEETING_S = 120.0
 SERVE_JOB_SEEDS = (4, 5, 6)
 SERVE_V1_S = (30.0, 40.0, 50.0, 60.0)
-# the job's stage marks (JobContext.stage messages): the 9 stages, stage 4
-# in two marks (decode, then transcribe + diarize + fuse)
+# the job's stage spans (JobContext.stage: job.<stage>, utils/constants.py
+# STAGES): the 9 stages,
+# stage 4 in two spans (decode the audio, then transcribe + diarize + fuse)
 SERVE_STAGES = (
-    "Fetching file metadata...", "Downloading attachments...", "Downloading audio file...",
-    "Decoding audio...", "Transcribing on the device...", "Identifying speakers...",
-    "Building transcript...", "Generating summary...", "Creating Notion page...",
-    "Organizing Drive files...",
+    "job.metadata", "job.attachments", "job.download", "job.decode_audio", "job.transcribe",
+    "job.speakers", "job.transcript", "job.summary", "job.notion", "job.rename",
 )
 
 
@@ -2195,6 +2194,7 @@ def phase_serve(dev, card: str, mesh_jobs: dict | None = None) -> tuple[dict, di
     from audio_processor_tpu_torch.ops.kernels.log_mel import log_mel
     from audio_processor_tpu_torch.pipeline import ingest
     from audio_processor_tpu_torch.pipeline.fuse import fuse_segments, relabel_speakers
+    from audio_processor_tpu_torch.runtime import trace
     from audio_processor_tpu_torch.runtime.services import build_services
     from audio_processor_tpu_torch.server import openai_api
     from audio_processor_tpu_torch.server.app import create_app
@@ -2354,7 +2354,7 @@ def phase_serve(dev, card: str, mesh_jobs: dict | None = None) -> tuple[dict, di
 
         # /v1: 4 concurrent uploads through the dynamic batcher
         os.environ["APTPU_DYNAMIC_BATCH_WAIT_MS"] = "50"
-        openai_api._batch_stats.update(batches=0, files=0)
+        trace.reset_totals()  # the batcher's counters count this phase alone
         clips = []
         for i, secs in enumerate(SERVE_V1_S):
             path = os.path.join(tmp, f"v1_{i}.wav")
@@ -2722,7 +2722,7 @@ def phase_ingest_media(dev, tr, counters, tmp: str, mstat: dict) -> tuple[dict, 
             and res.get("notion_page_id") == "page-7" and set(stages) == set(SERVE_STAGES)):
         fail(f"ingest: the .m4a job ended {st['status']}: {st.get('error')} {sorted(stages)}")
     out["job"] = {"audio_s": INGEST_JOB_S, "max_new_tokens": MESH_PATH_TOKENS, "wall_s": job_s,
-                  "decode_stage_s": stages["Decoding audio..."],
+                  "decode_stage_s": stages["job.decode_audio"],
                   "stage_s": stages, "segments": len(res["segments"]),
                   "drive_filename": res.get("drive_filename"), "launches": launches["job"]}
     return out, launches

@@ -182,9 +182,11 @@ def test_meeting_job_equals_jax(wav_file, transcribers, diarizers, f32):
     assert values == jvalues
     # the engine writes the final 100 itself, with the result
     assert values[0] == 5 and values[-1] == 95 and values == sorted(values)
-    # the same 10 marks of the 9 stages (stage 4 has two); the one message
-    # that named the JAX package's chip names none in the port
-    assert [k.replace("on TPU", "on the device") for k in jstages] == list(stages)
+    # the same 10 stages (stage 4 has two), in the same order; the port names
+    # each by the work of the stage its stage() call starts, JAX by its message
+    keys = ("metadata", "attachments", "download", "decode_audio", "transcribe", "speakers",
+            "transcript", "summary", "notion", "rename")
+    assert len(jstages) == len(keys) and list(stages) == [f"job.{k}" for k in keys]
 
 
 def test_meeting_job_failure_salvage(wav_file, transcribers):

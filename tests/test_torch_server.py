@@ -34,7 +34,7 @@ from audio_processor_tpu_torch.models.whisper import convert
 from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
 from audio_processor_tpu_torch.pipeline import meeting
 from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
-from audio_processor_tpu_torch.runtime import job_engine, services
+from audio_processor_tpu_torch.runtime import job_engine, services, trace
 from audio_processor_tpu_torch.runtime.device import set_full_fp32
 from audio_processor_tpu_torch.runtime.job_engine import JobCancelled, JobEngine
 from audio_processor_tpu_torch.runtime.job_store import (
@@ -126,7 +126,9 @@ def multipart(fields: dict, file: tuple | None):
 UUID = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
 ISO = re.compile(r"\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(\.\d+)?(\+00:00)?")
 TIME_KEYS = {"created_at", "updated_at", "timestamp", "completed_at", "started_at",
-             "processing_s", "rtf_x", "rtf_x_p50", "rtf_x_mean", "stage_seconds_mean"}
+             "processing_s", "rtf_x", "rtf_x_p50", "rtf_x_mean", "stage_seconds_mean",
+             "audio_seconds_total", "processing_seconds_total", "queue_wait_seconds_sum",
+             "slot_wait_seconds_sum"}
 # the one progress message that names the JAX package's chip
 CHIP = ("on TPU", "on the device")
 
@@ -142,7 +144,8 @@ def mask(x):
         x = ISO.sub("<t>", UUID.sub("<id>", x.replace(*CHIP)))
         # text bodies: SSE data lines and the Prometheus exposition
         x = re.sub(r'("(?:processing_s|rtf_x)": )[0-9.e+-]+', r"\1<t>", x)
-        x = re.sub(r"^(aptpu_(?:rtf_x_\w+|stage_seconds_mean.*?)) [0-9.e+-]+$", r"\1 <t>", x,
+        x = re.sub(r"^(aptpu_(?:rtf_x\w*|stage_seconds_mean.*?|audio_seconds_total|"
+                   r"processing_seconds_total|v1_\w+_seconds_sum)) [0-9.e+-]+$", r"\1 <t>", x,
                    flags=re.M)
         return x
     return x
@@ -264,18 +267,64 @@ def logs(stacks, tmp_path_factory):
     path = tmp_path_factory.mktemp("audio") / "REC_20250617_093000.wav"
     with open(path, "wb") as f:
         f.write(wav_bytes(12.0, f0=180.0))
-    for mod in (jopenai_api, openai_api):  # other tests' batches must not show in metrics
-        mod._batch_stats.update(batches=0, files=0)
+    # other tests' batches and waits must not show in metrics
+    jopenai_api._batch_stats.update(batches=0, files=0)
+    trace.reset_totals()
     return {name: script(app, engine, str(path)) for name, app, engine in stacks}
 
 
 WORD = "v1 {'response_format': 'verbose_json', 'timestamp_granularities[]': 'word'}"
 
 
+# /api/metrics: the port exports its rate as sums over the completed jobs
+# (JAX: rtf_x_p50 / rtf_x_mean), names each stage job.<stage> by its work
+# (utils/constants.py STAGES; JAX: by its progress message) and adds the /v1 waits; the rest is JAX's
+METRICS = ("metrics", "metrics prometheus", "key /api/metrics")
+PORT_METRICS = {"audio_seconds_total", "processing_seconds_total", "rtf_x", "v1_waits"}
+JAX_METRICS = {"rtf_x_p50", "rtf_x_mean"}
+_METRIC_LINE = re.compile(r"^(# (HELP|TYPE) )?aptpu_(rtf_x|audio_seconds|processing_seconds|"
+                          r"v1_(queue|slot)_wait|v1_decode_slots|stage_seconds_mean\{)")
+JOB_STAGES = ["job." + k for k in ("metadata", "attachments", "download", "decode_audio",
+                                   "transcribe", "speakers", "transcript", "summary", "notion",
+                                   "rename")]
+
+
+def _shared_metrics(entry, drop):
+    """A metrics response less what only one package exports."""
+    label, status, body, ctype = entry
+    if isinstance(body, dict):
+        m = {k: v for k, v in body["metrics"].items() if k not in drop}
+        return label, status, dict(body, metrics=m), ctype
+    lines = [ln for ln in body.splitlines() if not _METRIC_LINE.match(ln)]
+    return label, status, "\n".join(lines), ctype
+
+
+def _check_port_metrics(entry, ref) -> None:
+    label, _, body, _ = entry
+    if isinstance(body, dict):
+        m = body["metrics"]
+        assert PORT_METRICS <= set(m) and not JAX_METRICS & set(m), label
+        assert set(m["v1_waits"]) == {"queue_wait_seconds_sum", "queue_wait_count",
+                                      "slot_wait_seconds_sum", "slot_wait_count",
+                                      "decode_slots_in_use"}, label
+        return
+    stages = re.findall(r'^aptpu_stage_seconds_mean\{stage="([^"]+)"\}', body, re.M)
+    assert sorted(stages) == sorted(JOB_STAGES), label
+    assert len(stages) == len(re.findall(r"^aptpu_stage_seconds_mean\{", ref[2], re.M))
+    for name in ("aptpu_audio_seconds_total <t>", "aptpu_processing_seconds_total <t>",
+                 "aptpu_v1_queue_wait_seconds_count", "aptpu_v1_slot_wait_seconds_sum <t>",
+                 "aptpu_v1_decode_slots_in_use 0"):
+        assert name in body, (label, name)
+    assert "aptpu_rtf_x_p50" not in body and "aptpu_rtf_x " in body, label
+
+
 def test_script_equals_jax(logs):
     jlog, log = logs["jax"], logs["port"]
     assert [e[0] for e in log] == [e[0] for e in jlog]
     for ours, ref in zip(log, jlog):
+        if ours[0] in METRICS:
+            _check_port_metrics(ours, ref)
+            ours, ref = _shared_metrics(ours, PORT_METRICS), _shared_metrics(ref, JAX_METRICS)
         assert ours == ref, ours[0]
     by_label = dict((e[0], e) for e in log)
     # the script reached what it meant to: a completed job with segments,
@@ -493,7 +542,7 @@ def test_job_success_failure_and_listing(store):
         assert {j["id"] for j in engine.list_jobs("completed")} == {"ok"}
         assert {j["id"] for j in engine.list_jobs("failed")} == {"bad"}
         assert len(engine.list_jobs("all")) == 2 and engine.active_count() == 0
-        assert engine.store.get("ok")["stage_timings"].keys() == {"working"}
+        assert engine.store.get("ok")["stage_timings"].keys() == {"job.transcribe"}
     finally:
         engine.shutdown(wait=False)
 

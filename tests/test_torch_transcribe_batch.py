@@ -45,14 +45,15 @@ def pairs():
 
 
 def _comparable(res: dict) -> dict:
-    # rtf_x measures wall time (shared across a batch)
-    return {k: v for k, v in res.items() if k != "rtf_x"}
+    # rtf_x and the trace measure wall time (shared across a batch)
+    return {k: v for k, v in res.items() if k not in ("rtf_x", "trace")}
 
 
 def _assert_same(ours: dict, ref: dict, tol: float = 1e-4):
     """Text, duration, language and segments equal; per-segment decode
-    statistics within tol (the two frameworks sum in different orders)."""
-    assert set(ours) == set(ref)
+    statistics within tol (the two frameworks sum in different orders).
+    The port's results carry its stage trace, which JAX's lack."""
+    assert set(ours) - {"trace"} == set(ref) - {"trace"}
     for key in ("text", "duration", "language"):
         assert ours.get(key) == ref.get(key), key
     assert len(ours["segments"]) == len(ref["segments"])

@@ -31,8 +31,9 @@ import torch.nn.functional as F
 
 from ...ops.kernels.encoder_attention import _scores_f32
 from ...ops.kernels.encoder_attention import attention_reference as attention
-from ...ops.kernels.encoder_attention import fused_self_attention
+from ...ops.kernels.encoder_attention import fused_self_attention, kernel_serves
 from ...parallel import mesh as mesh_lib
+from ...runtime import trace
 from .config import WhisperConfig
 
 Params = dict[str, Any]
@@ -236,17 +237,23 @@ def causal_mask(t: int, device=None) -> torch.Tensor:
 def self_attention(p, x, n_head, mask=None, fused=False, mesh=None):
     """n_head: the heads held here (the rank's under a mesh).  mask: an
     additive (T, T) mask (the teacher-forced decoder's causal one).
-    fused=True runs the encoder-attention kernel (the plain version on CPU
-    tensors) when there is no mask; the default is the plain matmuls, as
-    in JAX."""
+    Without a mask, fused=True runs the encoder-attention kernel (the plain
+    version on CPU tensors), fused=None runs it where ``kernel_serves``
+    holds for q, k, v and the plain matmuls elsewhere; the default, False,
+    is the plain matmuls, as in JAX.  Each launch of the kernel counts
+    ``encode.attn_kernel`` in the open request's trace."""
     x = mesh_lib.copy_to_model(x, mesh)
     q = split_heads(linear(p["q"], x), n_head)
     k = split_heads(linear(p["k"], x), n_head)
     v = split_heads(linear(p["v"], x), n_head)
     if mask is not None:
         o = masked_attention(q, k, v, mask)
+    elif fused or (fused is None and kernel_serves(q, k, v)):
+        o = fused_self_attention(q, k, v)
+        if q.is_cuda:  # on the CPU it ran the plain version
+            trace.count("encode.attn_kernel")
     else:
-        o = fused_self_attention(q, k, v) if fused else attention(q, k, v)
+        o = attention(q, k, v)
     return row_parallel_linear(p["out"], merge_heads(o), mesh)
 
 
@@ -272,13 +279,14 @@ def encode(
     mel: torch.Tensor,
     *,
     compute_dtype: torch.dtype = torch.float32,
-    fused_attn: bool = False,
+    fused_attn: bool | None = False,
     mesh=None,
 ) -> torch.Tensor:
-    """mel (B, n_mels, 3000) -> encoder states (B, 1500, d).  fused_attn
-    runs self-attention through the encoder-attention kernel.  mesh: the
-    params are this model rank's slices (every rank returns the whole
-    states)."""
+    """mel (B, n_mels, 3000) -> encoder states (B, 1500, d).  fused_attn:
+    True runs self-attention through the encoder-attention kernel, None
+    where the kernel serves (``self_attention``), False the plain matmuls.
+    mesh: the params are this model rank's slices (every rank returns the
+    whole states)."""
     p = params["encoder"]
     n_head = local_heads(cfg.n_audio_head, mesh)
     x = mel.to(compute_dtype)  # (B, n_mels, T): conv1d's channel-first layout

@@ -9,7 +9,8 @@ softmax run in float32 and the normalised probabilities are rounded to
 the compute dtype before the product with V, as the TPU kernel does.
 
 ``fused_self_attention`` launches the kernel on CUDA tensors and runs the
-plain version (``attention_reference``) on CPU tensors.  The bf16 kernel
+plain version (``attention_reference``) on CPU tensors; ``kernel_serves``
+says where the encoder takes the kernel unasked.  The bf16 kernel
 gathers the softmax statistics tile by tile in a first pass over the keys
 and forms P in a second, so it rounds the same P as the plain version.
 Bound and design: see the source.
@@ -62,6 +63,16 @@ def _library() -> ctypes.CDLL:
     )
     fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_serves(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernel serves these (B, T, H, Dh) operands: on CUDA, in
+    bfloat16 (the float32 kernel is a parity path, not a serving one), at a
+    head width it is built for, and with nothing requiring grad (it has no
+    backward).  Both compute one function at one precision, so where the
+    kernel does not serve, the plain version runs."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
+            and not (q.requires_grad or k.requires_grad or v.requires_grad))
 
 
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -223,7 +223,9 @@ class Transcriber:
     seek_repair: bool = True
     without_timestamps: bool = False
     max_initial_timestamp: float | None = 1.0
-    # encoder self-attention through the encoder-attention CUDA kernel
+    # encoder self-attention through the encoder-attention CUDA kernel also
+    # where it would run plain (float32 on CUDA); bfloat16 on CUDA takes the
+    # kernel without it (``encoder_attention.kernel_serves``)
     use_pallas_encoder_attn: bool = False
     # openai's initial_prompt: <|startofprev|> context for the first window
     # (kept through its retries); with condition_on_previous_text it seeds
@@ -493,13 +495,15 @@ class Transcriber:
     def _frontend_encode(self, chunks_i16: torch.Tensor) -> torch.Tensor:
         """int16 (B, 480000) on the device -> encoder states (B, 1500, d).
         The log-mel is the fused CUDA kernel on the card, and so is encoder
-        self-attention with use_pallas_encoder_attn."""
+        self-attention where the kernel serves (bfloat16), or everywhere on
+        the card with use_pallas_encoder_attn; each layer that launches it
+        counts ``encode.attn_kernel`` (``model.self_attention``)."""
         with trace.span("transcribe.encode"):
             audio = chunks_i16.float() / 32768.0
             mel = log_mel(audio, n_mels=self.cfg.n_mels)
             return model_lib.encode(
                 self.params, self.cfg, mel, compute_dtype=getattr(torch, self.compute_dtype),
-                fused_attn=self.use_pallas_encoder_attn, mesh=self.mesh,
+                fused_attn=True if self.use_pallas_encoder_attn else None, mesh=self.mesh,
             )
 
     # -- the data axis: a slab's rows split over the data ranks ----------------

@@ -10,7 +10,8 @@ nvcc per source, all at once), holds each against its plain PyTorch version
 at the main path's shapes and times it, checks the whole chain card vs CPU
 on a small config (greedy, int8-kernel greedy, beam, prompted, fused
 encoder), drives ``Transcriber.transcribe`` at whisper-small width with
-random weights on its default path and with openai-whisper's CLI defaults
+random weights on its default path (bf16: kernel #6 in every encoder
+layer) and with openai-whisper's CLI defaults
 (beam 5, conditioned on the previous text, an initial prompt carried to
 every window) through the fused encoder, and runs the bench workload
 (log-mel + encode + 96-token decode, bf16, EOT suppressed) in its
@@ -450,8 +451,10 @@ def phase_cross_attn(dev, kernels) -> dict:
 
 
 def phase_encoder_attn(dev, kernels) -> dict:
-    """Kernel #6 against its plain version at B=8 (bf16 and f32), timed at
-    the default slab's B=128 in bf16 with SDPA on the same tensors as the
+    """Kernel #6 against its plain version at B=8 (bf16 and f32) and at
+    large-v3-turbo's slab (B=48, H=20, bf16; the plain version on 4 of its
+    rows, since the whole slab's f32 scores take 8.6 GB), timed at the
+    default slab's B=128 in bf16 with SDPA on the same tensors as the
     yardstick."""
     from audio_processor_tpu_torch.ops.kernels import encoder_attention as ea
 
@@ -459,7 +462,7 @@ def phase_encoder_attn(dev, kernels) -> dict:
     g = torch.Generator(device=dev).manual_seed(6)
     out = {"phase": "encoder_attn", "shape": [t, h, dh]}
 
-    def qkv(b, dtype):  # split-heads views of one projection, as in the encoder
+    def qkv(b, dtype, h=h):  # split-heads views of one projection, as in the encoder
         x = torch.randn(b, t, 3 * h * dh, device=dev, generator=g).to(dtype)
         return [y.reshape(b, t, h, dh) for y in x.split(h * dh, dim=-1)]
 
@@ -475,6 +478,20 @@ def phase_encoder_attn(dev, kernels) -> dict:
             fail(f"encoder_attn {name} B=8: max abs err {err} > {tol}")
         out[f"max_abs_err_{name}_b8"] = err
     del q, k, v, got
+
+    # turbo's slab, as the bf16 Transcriber serves it: the first and last
+    # rows of the kernel's output against the plain version on those rows
+    b, ht = 48, 20
+    q, k, v = qkv(b, torch.bfloat16, h=ht)
+    got = ea.fused_self_attention(q, k, v)
+    rows = torch.tensor([0, 1, b - 2, b - 1], device=dev)
+    ref = ea.attention_reference(*(x.index_select(0, rows) for x in (q, k, v)))
+    torch.cuda.synchronize()
+    err = (got.index_select(0, rows).float() - ref.float()).abs().max().item()
+    if not (err <= 4e-3 and got.shape == (b, t, ht, dh) and torch.isfinite(got).all().item()):
+        fail(f"encoder_attn bf16 B={b}, H={ht}: max abs err {err} > 4e-3, or shape or finiteness")
+    out["max_abs_err_bfloat16_b48_h20"] = err
+    del q, k, v, got, ref
 
     b = 128
     q, k, v = qkv(b, torch.bfloat16)
@@ -495,6 +512,7 @@ def phase_encoder_attn(dev, kernels) -> dict:
         name="encoder_attn", route="cuda", source="audio_processor_tpu_torch/csrc/encoder_attn.cu",
         replaces="audio_processor_tpu/ops/pallas/encoder_attention.py:80",
         max_abs_err=out["max_abs_err_bfloat16_b8"], max_abs_err_f32=out["max_abs_err_float32_b8"],
+        max_abs_err_b48_h20=out["max_abs_err_bfloat16_b48_h20"],
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         shape=f"q, k, v ({b}, {t}, {h}, {dh}) bf16 -> ({b}, {t}, {h}, {dh}) bf16",
     )
@@ -3981,7 +3999,7 @@ def main(argv: list[str] | None = None) -> None:
           "cross_attn_int8_sass_i2f": int8_i2f, "cross_attn_probes_sass_i2f": probe_i2f,
           "ptxas": ptxas_lines(logs)})
     if args.tp_only:
-        summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked])
+        summary, tr = phase_transcribe(dev, [log_mel, fused_self_attention, cross_attention_int4_stacked])
         emit(summary)
         tp_summary, _, mesh_phases, _ = phase_transcribe_tp(dev, tr)
         for line in (tp_summary, *mesh_phases):
@@ -4012,15 +4030,16 @@ def main(argv: list[str] | None = None) -> None:
     emit(phase_check(dev))
     # kernels #4 and #5 are on no single-card path: their counters are
     # zeroed and read beside the others
-    summary, tr = phase_transcribe(dev, [log_mel, cross_attention_int4_stacked],
+    summary, tr = phase_transcribe(dev, [log_mel, fused_self_attention, cross_attention_int4_stacked],
                                    off_path=[cross_attention_int4, cross_attention_int4_stacked_tp])
     emit(summary)
     kernels["log_mel"]["launches"] = summary["launches"]["log_mel"]
     kernels["cross_attn_int4"]["launches"] = summary["launches"]["cross_attention_int4_stacked"]
+    kernels["encoder_attn"]["launches"] = summary["launches"]["fused_self_attention"]
     openai = phase_transcribe_openai(dev, [log_mel, fused_self_attention, cross_attention_int4_stacked],
                                      off_path=[cross_attention_int4])
     emit(openai)
-    kernels["encoder_attn"]["launches"] = openai["launches"]["fused_self_attention"]
+    kernels["encoder_attn"]["launches_openai_defaults"] = openai["launches"]["fused_self_attention"]
     kernels["cross_attn_int4_single"]["launches"] = (
         summary["launches"]["cross_attention_int4"] + openai["launches"]["cross_attention_int4"])
     torch.cuda.empty_cache()

@@ -7,8 +7,15 @@ Tolerances: float32 2e-5 (T=64 and the tail-padded T=50), the JAX
 suite's for this kernel; bfloat16 4e-3 + 8e-3 relative, tighter than that
 suite's 2e-2 because both sides keep the scores in float32 and round only
 the normalised probabilities and the output to bf16; the encoder 2e-4.
+
+Also the dispatch, without a card: where ``kernel_serves`` sends the
+encoder's self-attention (CUDA, bfloat16, Dh 64, nothing requiring grad),
+that the encoder asked with ``fused_attn=None`` follows it, and that a CPU
+Transcriber runs the plain version and counts no kernel launch.
 """
+import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -21,6 +28,7 @@ from audio_processor_tpu.ops.pallas import encoder_attention as jea
 from audio_processor_tpu_torch.models.whisper import convert, model
 from audio_processor_tpu_torch.models.whisper.config import WhisperConfig
 from audio_processor_tpu_torch.ops.kernels import encoder_attention as ea
+from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
 from audio_processor_tpu_torch.runtime.device import set_full_fp32
 
 set_full_fp32()
@@ -106,3 +114,99 @@ def test_wrapper_rejects_other_devices():
     q = torch.zeros((1, 4, 1, 32), device="meta")
     with pytest.raises(ValueError):
         ea.fused_self_attention(q, q, q)
+
+
+def _operand(device="cuda", dtype=torch.bfloat16, dh=64, requires_grad=False):
+    """What ``kernel_serves`` reads of a (B, T, H, Dh) operand, on any device
+    name: no card is needed to ask about one."""
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype,
+                                 shape=(2, 8, 4, dh), requires_grad=requires_grad)
+
+
+@pytest.mark.parametrize("q,k,v,want", [
+    (_operand(), _operand(), _operand(), True),
+    (_operand(dtype=torch.float32), _operand(dtype=torch.float32),
+     _operand(dtype=torch.float32), False),
+    (_operand(dtype=torch.float16), _operand(dtype=torch.float16),
+     _operand(dtype=torch.float16), False),
+    (_operand(dh=32), _operand(dh=32), _operand(dh=32), False),
+    (_operand(dh=128), _operand(dh=128), _operand(dh=128), False),
+    (_operand(requires_grad=True), _operand(), _operand(), False),
+    (_operand(), _operand(requires_grad=True), _operand(), False),
+    (_operand(), _operand(), _operand(requires_grad=True), False),
+    (_operand("cpu"), _operand("cpu"), _operand("cpu"), False),
+    (_operand("meta"), _operand("meta"), _operand("meta"), False),
+], ids=["cuda-bf16-dh64", "cuda-f32", "cuda-f16", "cuda-dh32", "cuda-dh128", "q-grad",
+        "k-grad", "v-grad", "cpu", "meta"])
+def test_kernel_serves_cuda_bf16_dh64_without_grad(q, k, v, want):
+    assert ea.kernel_serves(q, k, v) is want
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_kernel_serves_no_real_tensor_off_the_card(device):
+    """bf16 operands with Dh 64, on the CPU and on the meta device."""
+    x = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16, device=device)
+    assert not ea.kernel_serves(x, x, x)
+
+
+_DIMS = dict(n_mels=80, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+             n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=1024)  # Dh 64
+
+
+def _spy(monkeypatch, name):
+    """Replace ``model.<name>`` by a wrapper that counts its calls."""
+    calls = []
+    fn = getattr(model, name)
+
+    def spy(*a):
+        calls.append(a[0].shape)
+        return fn(*a)
+
+    monkeypatch.setattr(model, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("serves", [True, False])
+def test_encode_asked_with_none_follows_kernel_serves(monkeypatch, serves):
+    """``fused_attn=None`` takes the kernel's entry point in every layer
+    exactly where ``kernel_serves`` holds (faked here: the CPU never holds
+    it), and the plain version elsewhere; the default, False, never asks."""
+    cfg = WhisperConfig(name="t", n_audio_ctx=32, **_DIMS)
+    params = model.init_params(cfg, torch.Generator().manual_seed(7))
+    mel = torch.from_numpy(np.random.default_rng(8).normal(0, 1, (2, 80, 64)).astype(np.float32))
+    asked = []
+    monkeypatch.setattr(model, "kernel_serves", lambda *qkv: asked.append(qkv) or serves)
+    fused, plain = _spy(monkeypatch, "fused_self_attention"), _spy(monkeypatch, "attention")
+    got = model.encode(params, cfg, mel, fused_attn=None)
+    n = cfg.n_audio_layer
+    assert len(asked) == n and all(x.shape == (2, 32, 2, 64) for x in asked[0])
+    assert (len(fused), len(plain)) == ((n, 0) if serves else (0, n))
+    plain.clear()
+    want = model.encode(params, cfg, mel)
+    assert len(asked) == n and len(plain) == n
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cpu_transcriber_runs_plain_attention_and_counts_no_kernel(monkeypatch, dtype):
+    """A Transcriber on the CPU at a head width the kernel has (Dh 64) runs
+    every encoder layer through the plain version, and its trace counts
+    ``encode.attn_kernel`` 0."""
+    cfg = WhisperConfig(name="t", **_DIMS)
+    params = model.init_params(cfg, torch.Generator().manual_seed(9))
+    tr = Transcriber(params=params, cfg=cfg, device="cpu", compute_dtype=dtype,
+                     max_new_tokens=4, enable_fallback=False)
+    fused, plain = _spy(monkeypatch, "fused_self_attention"), _spy(monkeypatch, "attention")
+    audio = np.random.default_rng(10).normal(0, 0.1, 16_000 * 8).astype(np.float32)
+    t = tr.transcribe(audio, remove_silence=False)["trace"]
+    encodes = t["spans"]["transcribe.encode"]["count"]
+    assert encodes >= 1 and t["counters"].get("encode.attn_kernel", 0) == 0
+    assert not fused and len(plain) == cfg.n_audio_layer * encodes
+
+
+def test_the_forcing_flag_keeps_the_jax_default():
+    """``use_pallas_encoder_attn`` forces the kernel where the Transcriber
+    would run plain; off by default, as in JAX."""
+    field = {f.name: f for f in dataclasses.fields(Transcriber)}["use_pallas_encoder_attn"]
+    assert field.default is False
+    assert Transcriber.random_init("test", device="cpu").use_pallas_encoder_attn is False

@@ -2,12 +2,13 @@
 card: A (log-mel, on Whisper's 30 s windows and the diarizer's 10 s and
 6 s ones), B (int4 cross-attention, stacked and single-layer), #5
 (kernel B on a model rank's heads), the int8 cross-attention and the
-encoder self-attention; the C++ DTW of the word timestamps against its
-numpy twin; and the paths that run them (greedy, int8-kernel greedy and
-beam decodes, with the int8 self cache too, the bundled Diarizer) against
-the CPU's results; and the mesh paths (word timestamps, int8 decoder
-weights, the Diarizer and the service under ``APTPU_DISTRIBUTED=1``) on a
-world of 2 gloo ranks sharing the card, each with its kernel launches.
+encoder self-attention (and the bf16 Transcriber that takes it); the C++
+DTW of the word timestamps against its numpy twin; and the paths that run
+them (greedy, int8-kernel greedy and beam decodes, with the int8 self
+cache too, the bundled Diarizer) against the CPU's results; and the mesh
+paths (word timestamps, int8 decoder weights, the Diarizer and the service
+under ``APTPU_DISTRIBUTED=1``) on a world of 2 gloo ranks sharing the card,
+each with its kernel launches.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card.  This file imports neither jax nor the JAX package,
@@ -421,13 +422,15 @@ def test_int4_single_layer_kernel_matches_plain(dev):
 @pytest.mark.parametrize("dtype,tol,t,h", [
     (torch.bfloat16, 4e-3, 1500, 12), (torch.float32, 1e-4, 1500, 12),
     (torch.bfloat16, 4e-3, 77, 2), (torch.float32, 1e-4, 77, 2),
+    (torch.bfloat16, 4e-3, 1500, 20), (torch.bfloat16, 4e-3, 1500, 16),
 ])
 def test_encoder_attention_kernel_matches_plain(dev, dtype, tol, t, h):
     """Whisper-small's encoder shape (B=8, T=1500, H=12, Dh=64), read from
-    the split-heads views of one (B, T, 3*H*Dh) projection, and a short
-    ragged T with 2 heads.  Both sides keep the scores in f32 and round the
-    normalised P to bf16, so bf16 outputs (|x| up to ~0.3) differ by an
-    output ulp or two: 4e-3; f32 at 1e-4."""
+    the split-heads views of one (B, T, 3*H*Dh) projection, a short ragged
+    T with 2 heads, and the heads of large-v3-turbo (20) and medium (16) in
+    bf16, as the Transcriber serves them.  Both sides keep the scores in f32
+    and round the normalised P to bf16, so bf16 outputs (|x| up to ~0.3)
+    differ by an output ulp or two: 4e-3; f32 at 1e-4."""
     g = torch.Generator(device=dev).manual_seed(t)
     b, dh = 8, 64
     qkv = torch.randn(b, t, 3 * h * dh, device=dev, generator=g).to(dtype)
@@ -465,20 +468,52 @@ def test_encoder_attention_bf16_tiles_and_layouts(dev, t, b, split):
     assert (out.float() - ref.float()).abs().max().item() <= 4e-3
 
 
-def test_encoder_attention_kernel_peak_memory(dev):
-    """At the default slab (B=128, T=1500, H=12, Dh=64, bf16) one layer
-    call allocates only its output: far below one layer's f32 scores
-    (128 * 12 * 1500^2 * 4 B = 13.8 GB), which the plain path holds."""
-    b, t, h, dh = 128, 1500, 12, 64
+@pytest.mark.parametrize("b,h,scores_bytes", [(128, 12, 13.8e9), (48, 20, 8.6e9)],
+                         ids=["small-slab", "turbo-slab"])
+def test_encoder_attention_kernel_peak_memory(dev, b, h, scores_bytes):
+    """At small's default slab (B=128, H=12) and turbo's (B=48, H=20), with
+    T=1500, Dh=64, bf16, one layer call allocates only its output: far below
+    one layer's f32 scores (13.8 GB and 8.6 GB), which the plain path holds
+    and which make a full comparison at these sizes costly.  The output is
+    finite and of the input's shape and dtype."""
+    t, dh = 1500, 64
     q, k, v = (torch.randn(b, t, h, dh, device=dev, dtype=torch.bfloat16) for _ in range(3))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ea.fused_self_attention(q, k, v)
+    out = ea.fused_self_attention(q, k, v)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     assert extra <= b * t * h * dh * 2 + (1 << 20)
-    assert torch.cuda.max_memory_allocated() < 13.8e9
+    assert torch.cuda.max_memory_allocated() < scores_bytes
+    assert out.shape == (b, t, h, dh) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all().item()
+
+
+# Dh 64, as in every Whisper config, so the encoder's self-attention can
+# take kernel #6
+_DH64 = WhisperConfig(name="dh64-test", n_mels=80, n_audio_state=128, n_audio_head=2,
+                      n_audio_layer=2, n_vocab=1024, n_text_state=128, n_text_head=2,
+                      n_text_layer=1)
+
+
+@pytest.mark.parametrize("dtype,per_layer", [("bfloat16", 1), ("float32", 0)])
+def test_transcriber_counts_the_encoder_attention_kernel(dev, dtype, per_layer):
+    """A bf16 Transcriber on the card runs every encoder layer's
+    self-attention through kernel #6 (``encode.attn_kernel`` = layers x
+    encode calls); a float32 one runs the plain version and counts 0."""
+    from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
+
+    params = model.init_params(_DH64, torch.Generator().manual_seed(11))
+    tr = Transcriber(params=params, cfg=_DH64, device=dev, compute_dtype=dtype,
+                     max_new_tokens=4, enable_fallback=False)
+    audio = np.random.default_rng(12).normal(0, 0.1, 16_000 * 40).astype(np.float32)
+    before = ea.fused_self_attention.launches
+    t = tr.transcribe(audio, remove_silence=False)["trace"]
+    encodes = t["spans"]["transcribe.encode"]["count"]
+    n = per_layer * _DH64.n_audio_layer * encodes
+    assert encodes >= 1 and t["counters"].get("encode.attn_kernel", 0) == n
+    assert ea.fused_self_attention.launches - before == n
 
 
 def test_new_wrappers_reject_bad_inputs(dev):

@@ -50,6 +50,66 @@ DEFAULT_MODELS = (
 API_ROOT = "https://generativelanguage.googleapis.com/v1beta"
 
 
+# the three tasks' instructions and defaults, shared with the on-card
+# client (integrations/local_llm.py)
+SPEAKER_TASK = (
+    "The following are excerpts from a meeting transcript where "
+    "speakers are labeled SPEAKER_00, SPEAKER_01, etc. Infer each "
+    "speaker's real name from how they address each other. Reply "
+    "with ONLY a JSON object mapping each speaker code to a name, "
+    'e.g. {"SPEAKER_00": "Alice"}. If a name cannot be inferred, '
+    "map the code to itself."
+)
+SUMMARY_TASK = (
+    "Summarize this engineering meeting transcript. Reply with ONLY "
+    "a JSON object with keys: \"title\" (a concise meeting title), "
+    "\"summary\" (200-300 words), and \"todos\" (array of action-item "
+    "strings)."
+)
+NOTES_TASK = (
+    "Write detailed, well-structured meeting notes in Markdown from "
+    "this transcript: use headings, bullet points, and a decisions/"
+    "action-items section. Reply with the Markdown only."
+)
+
+
+def default_summary() -> dict[str, Any]:
+    return {"title": "Meeting Notes", "summary": "Summary generation failed.", "todos": []}
+
+
+def speaker_prompt(segments: list[dict], max_samples: int = 30) -> str:
+    """The speaker task over samples taken evenly across the meeting."""
+    step = max(1, -(-len(segments) // max_samples))  # ceil: stride 1
+    # would sample only the meeting's start for 31..59 segments
+    sample = segments[::step][:max_samples]
+    lines = "\n".join(f"{s['speaker']}: {s['text']}" for s in sample)
+    return SPEAKER_TASK + "\n\nTranscript excerpts:\n" + lines
+
+
+def parse_speakers(text: str, speakers: list[str]) -> dict[str, str]:
+    """{code: name} from the model's reply; a code it leaves out or names
+    with no text maps to itself."""
+    mapping = extract_json_object(text)
+    mapping = mapping if isinstance(mapping, dict) else {}
+    out = {}
+    for s in speakers:
+        name = mapping.get(s)
+        out[s] = name if isinstance(name, str) and name.strip() else s
+    return out
+
+
+def parse_summary(text: str) -> dict[str, Any]:
+    default = default_summary()
+    data = extract_json_object(text)
+    if not isinstance(data, dict):
+        return default
+    return {
+        "title": str(data.get("title") or default["title"]),
+        "summary": str(data.get("summary") or default["summary"]),
+        "todos": [str(x) for x in data.get("todos") or []],
+    }
+
+
 class GeminiError(RuntimeError):
     pass
 
@@ -146,30 +206,14 @@ class GeminiClient:
         speakers = sorted({s["speaker"] for s in segments})
         if not segments or not self.available:
             return {s: s for s in speakers}
-        step = max(1, -(-len(segments) // max_samples))  # ceil: stride 1
-        # would sample only the meeting's start for 31..59 segments
-        sample = segments[::step][:max_samples]
-        lines = "\n".join(f"{s['speaker']}: {s['text']}" for s in sample)
-        prompt = (
-            "The following are excerpts from a meeting transcript where "
-            "speakers are labeled SPEAKER_00, SPEAKER_01, etc. Infer each "
-            "speaker's real name from how they address each other. Reply "
-            "with ONLY a JSON object mapping each speaker code to a name, "
-            'e.g. {"SPEAKER_00": "Alice"}. If a name cannot be inferred, '
-            "map the code to itself.\n\nTranscript excerpts:\n" + lines
-        )
+        prompt = speaker_prompt(segments, max_samples)
         try:
             # flash-tier subset of the CONFIGURED ladder (reference uses
             # flash models for this cheap task, :959) — the module-level
             # FLASH_MODELS ignored a GEMINI_MODELS / constructor override
             flash = tuple(m for m in self.models if "flash" in m)
             text = self.generate(prompt, models=flash or self.models)
-            mapping = extract_json_object(text) or {}
-            out = {}
-            for s in speakers:
-                name = mapping.get(s)
-                out[s] = name if isinstance(name, str) and name.strip() else s
-            return out
+            return parse_speakers(text, speakers)
         except Exception as exc:  # noqa: BLE001 — graceful degradation
             logger.warning("speaker identification failed: %s", exc)
             return {s: s for s in speakers}
@@ -179,48 +223,24 @@ class GeminiClient:
     def generate_summary(
         self, transcript: str, attachment_text: str = ""
     ) -> dict[str, Any]:
-        default = {
-            "title": "Meeting Notes",
-            "summary": "Summary generation failed.",
-            "todos": [],
-        }
         if not self.available:
-            return default
+            return default_summary()
         context = (
             f"Reference documents:\n{attachment_text}\n\n" if attachment_text else ""
         )
-        prompt = (
-            context
-            + "Summarize this engineering meeting transcript. Reply with ONLY "
-            "a JSON object with keys: \"title\" (a concise meeting title), "
-            "\"summary\" (200-300 words), and \"todos\" (array of action-item "
-            "strings).\n\nTranscript:\n" + transcript
-        )
+        prompt = context + SUMMARY_TASK + "\n\nTranscript:\n" + transcript
         try:
-            text = self.generate(prompt)
-            data = extract_json_object(text)
-            if not isinstance(data, dict):
-                return default
-            return {
-                "title": str(data.get("title") or default["title"]),
-                "summary": str(data.get("summary") or default["summary"]),
-                "todos": [str(x) for x in data.get("todos") or []],
-            }
+            return parse_summary(self.generate(prompt))
         except Exception as exc:  # noqa: BLE001
             logger.warning("summary generation failed: %s", exc)
-            return default
+            return default_summary()
 
     # -- task: comprehensive notes (reference :478-502) ----------------------
 
     def generate_comprehensive_notes(self, transcript: str) -> str:
         if not self.available:
             return ""
-        prompt = (
-            "Write detailed, well-structured meeting notes in Markdown from "
-            "this transcript: use headings, bullet points, and a decisions/"
-            "action-items section. Reply with the Markdown only.\n\n"
-            + transcript
-        )
+        prompt = NOTES_TASK + "\n\n" + transcript
         try:
             return self.generate(prompt)
         except Exception as exc:  # noqa: BLE001

@@ -99,9 +99,12 @@ class JobContext:
         if self.engine.store.is_cancel_requested(self.job_id):
             raise JobCancelled(self.job_id)
 
-    def stage(self, value: int, message: str = "") -> None:
+    def stage(self, value: int, message: str = "", progress: int | None = None) -> None:
         """Cancel checkpoint + progress update + the stage's span.
 
+        ``value`` is the stage's checkpoint (``PROGRESS``); ``progress``,
+        where given, is reported in its place (a stage of one meeting of
+        a backlog job reports its share of the backlog's range).
         Per-stage wall times land in the job record as `stage_timings`
         (SURVEY.md §5.1: the reference has no tracing at all; its only
         observability is the progress int itself)."""
@@ -109,7 +112,7 @@ class JobContext:
         self.end_stage()
         self._stage = trace.span("job." + STAGES.get(value, f"progress_{value}"))
         self._stage.__enter__()
-        self.progress(value, message)
+        self.progress(value if progress is None else progress, message)
 
     def end_stage(self) -> None:
         """Close the open stage's span, if any."""

@@ -77,6 +77,17 @@ class Services:
 
         self.engine.submit(job_id, run, failure_result=build_failure_result)
 
+    def submit_backlog_job(self, job_id: str, file_ids: list[str], user_id: str | None) -> None:
+        """Several recordings as one job (``MeetingProcessor.process_backlog``):
+        an on-card language model writes them up in batches."""
+        oauth_drive = self.drive_for(user_id)
+
+        def run(ctx):
+            return self.processor.process_backlog(ctx, file_ids, user_id,
+                                                  oauth_drive=oauth_drive)
+
+        self.engine.submit(job_id, run, failure_result=build_failure_result)
+
     def set_oauth_credentials(self, creds, user_id: str | None = None) -> None:
         """Build a per-user Drive client from OAuth credentials
         (reference: audio_processor.py:133-150 — but per user, not global)."""
@@ -331,8 +342,21 @@ def build_services(
         from ..integrations.gemini import GeminiClient
         from ..integrations.notion import NotionClient
 
-        g = GeminiClient()
-        gemini = g if g.available else None
+        # APTPU_LOCAL_LLM=<preset> (models/llm/config.py, e.g.
+        # deepseek-v2-lite): the speaker, summary and notes stages run on
+        # this process's device instead of Gemini's API
+        local = os.environ.get("APTPU_LOCAL_LLM")
+        if local:
+            from ..integrations.local_llm import LocalLLMClient
+
+            logger.warning(
+                "APTPU_LOCAL_LLM=%s: no checkpoint or tokenizer ships with the port — "
+                "serving RANDOM language-model weights and a byte tokenizer; speaker "
+                "names, summaries and notes will be noise. Test/bench mode only.", local)
+            gemini = LocalLLMClient.random_init(local, device=device)
+        else:
+            g = GeminiClient()
+            gemini = g if g.available else None
         n = NotionClient()
         notion = n if n.available else None
 

@@ -7,7 +7,10 @@ job/<id>/cancel, jobs/status/batch, jobs/<id>/result, jobs/debug.
 Implementation differences (by design):
   * jobs live in a shared persistent store, so every server worker sees the
     same queue (fixes the reference's gunicorn split-brain defect);
-  * messages are English equivalents of the reference's zh-TW strings.
+  * messages are English equivalents of the reference's zh-TW strings;
+  * /process also takes ``file_ids``, a backlog of recordings as one job
+    (``MeetingProcessor.process_backlog``), which an on-card language
+    model writes up in batches.
 
 A copy of the JAX package's ``server/api.py``: the PyTorch package
 imports nothing of that package.
@@ -24,6 +27,9 @@ from typing import Any
 from .web import Blueprint, Request, Response
 
 logger = logging.getLogger(__name__)
+
+# recordings a backlog job at most
+MAX_BACKLOG = 64
 
 
 # SSE subscribers each hold a server thread; in the thread-per-request dev
@@ -98,7 +104,29 @@ def make_api_blueprint(services: Any, url_prefix: str = "/api") -> Blueprint:
         data = request.get_json()
         if not data:
             return {"success": False, "error": "Invalid request body"}, 400
-        file_id = data.get("file_id")
+        file_id, file_ids = data.get("file_id"), data.get("file_ids")
+        if file_ids is not None:
+            # a backlog: several recordings as one job, written up together
+            if file_id is not None or data.get("attachment_file_ids"):
+                return {"success": False, "error": "file_ids goes without file_id "
+                        "and attachment_file_ids"}, 400
+            if (not isinstance(file_ids, list) or not file_ids
+                    or not all(isinstance(x, str) and x for x in file_ids)):
+                return {"success": False,
+                        "error": "file_ids must be a non-empty list of strings"}, 400
+            if len(file_ids) > MAX_BACKLOG:
+                return {"success": False,
+                        "error": f"at most {MAX_BACKLOG} file_ids a job"}, 400
+            job_id = str(uuid.uuid4())
+            user_id = request.session.get("user_id") if request.session else None
+            job_data = engine.create_job(job_id, file_ids=file_ids, user_id=user_id)
+            services.submit_backlog_job(job_id, file_ids, user_id)
+            return {
+                "success": True,
+                "message": "Job submitted; processing in background",
+                "job_id": job_id,
+                "job_status": job_data["status"],
+            }
         if not file_id:
             return {"success": False, "error": "Missing file_id parameter"}, 400
         if not isinstance(file_id, str):

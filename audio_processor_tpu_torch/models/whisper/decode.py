@@ -8,10 +8,20 @@ per-row prompts, Whisper's logit rules, the greedy/sampling loop with
 best_of ranking, prompted greedy decode, beam search with openai's
 BeamSearchDecoder semantics, language detection, and the host-side seek
 and segment helpers.  Each decode's cache and prefill, each step of its
-loop, and the step's one read-back of the finished flags are spans of the
-open request's trace (``decode.prefill``, ``decode.step``,
-``decode.wait``; ``runtime/trace.py``), and the counter ``decode.steps``
-counts the steps: a step's host issue time is its span less its wait.
+loop, and each read-back of the finished flags are spans of the open
+request's trace (``decode.prefill``, ``decode.step``, ``decode.wait``;
+``runtime/trace.py``), and the counter ``decode.steps`` counts the steps:
+a step's host issue time is its span less its wait.
+
+On the card a greedy decode (temperature 0, no model split, nothing
+requiring grad) runs in a session of fixed buffers kept per shape
+(``_GreedySession``): its steps from the third on replay CUDA graphs
+captured once, cut at each launch of a hand-written cross-attention
+kernel, which runs between them through its wrapper; the finished flags
+are read every ``READBACK_EVERY`` steps, and the counter
+``decode.graph_steps`` counts the replayed steps.  Every other decode
+(the CPU, sampling, tp > 1, beam search) runs the eager loop, which reads
+the flags every step.
 
 Differences in idiom from the JAX version:
   * The self-attention cache is head-major, (L, B, H, T_max, Dh), so the
@@ -45,6 +55,8 @@ Differences in idiom from the JAX version:
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -263,6 +275,7 @@ def init_cache(
     kv_bits: int = 8,
     mesh=None,
     quantize_self_kv: bool = False,
+    into: Cache | None = None,
 ) -> Cache:
     """Preallocate the self cache and precompute the cross cache, for the
     heads of this model rank under a mesh.
@@ -278,44 +291,38 @@ def init_cache(
     the float K/V of only one layer is live at once (the result equals
     quantizing the stack).  The quantization is per head, so a rank's
     cache bytes are the head slice of the whole cache's.
+
+    into: a cache of these shapes (``_new_cache``) to fill in place, its
+    self cache zeroed, instead of allocating one.
     """
-    b = audio_states.shape[0]
-    n_layer, h = cfg.n_text_layer, local_heads(cfg.n_text_head, mesh)
-    dh = cfg.n_text_state // cfg.n_text_head  # the model's head width under any split
-    dev = audio_states.device
-    shape = (n_layer, b, h, max_len, dh)
-    self_dtype = torch.int8 if quantize_self_kv else dtype
-    self_k = torch.zeros(shape, dtype=self_dtype, device=dev)
-    self_v = torch.zeros(shape, dtype=self_dtype, device=dev)
-    scales = {}
-    if quantize_self_kv:
-        scales = dict(
-            self_k_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=dev),
-            self_v_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=dev),
-        )
+    if quantize_cross_kv and kernel_layout and kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    bits = kv_bits if (quantize_cross_kv and kernel_layout) else 8
+    b, ta = audio_states.shape[:2]
+    if into is None:
+        cache = _new_cache(cfg, b, ta, max_len, dtype, quantize_cross_kv, kernel_layout, bits,
+                           mesh, quantize_self_kv, audio_states.device, float_cross=False)
+    else:
+        cache = into
+        for c in (cache.self_k, cache.self_v, cache.self_k_scale, cache.self_v_scale):
+            if c is not None:
+                c.zero_()
+    h = local_heads(cfg.n_text_head, mesh)
     audio = audio_states.to(dtype)
     if not quantize_cross_kv:
         ck, cv = precompute_cross_attn(params, cfg, audio, mesh)
-        return Cache(self_k, self_v, ck.to(dtype), cv.to(dtype), **scales)
-    bits = kv_bits if kernel_layout else 8
-    if bits not in (4, 8):
-        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
-    ta = audio.shape[1]
+        if into is None:
+            cache.cross_k, cache.cross_v = ck.to(dtype), cv.to(dtype)
+        else:
+            cache.cross_k.copy_(ck)
+            cache.cross_v.copy_(cv)
+        return cache
     tpad = ta + (-ta) % 128
-    if kernel_layout:
-        cols = tpad // 2 if bits == 4 else tpad
-        ck = torch.empty((n_layer, b, h, dh, cols), dtype=torch.int8, device=dev)
-        cv = torch.empty((n_layer, b, h, cols, dh), dtype=torch.int8, device=dev)
-    else:
-        ck = torch.empty((n_layer, b, ta, h, dh), dtype=torch.int8, device=dev)
-        cv = torch.empty_like(ck)
-    ks = torch.empty((n_layer, b, 1, h, dh), dtype=torch.float32, device=dev)
-    vs = torch.empty_like(ks)
     blocks = params["decoder"]["blocks"]
-    for l in range(n_layer):
+    for l in range(cfg.n_text_layer):
         k, v = _cross_kv(layer(blocks, l), h, audio)
-        k8, ks[l] = _quantize_kv(k[None].float(), bits=bits)
-        v8, vs[l] = _quantize_kv(v[None].float(), bits=bits)
+        k8, cache.cross_k_scale[l] = _quantize_kv(k[None].float(), bits=bits)
+        v8, cache.cross_v_scale[l] = _quantize_kv(v[None].float(), bits=bits)
         k8, v8 = k8[0], v8[0]
         if kernel_layout:
             pad = tpad - ta
@@ -323,9 +330,43 @@ def init_cache(
             v8 = torch.nn.functional.pad(v8.permute(0, 2, 1, 3), (0, 0, 0, pad))  # (B,H,Tpad,Dh)
             if bits == 4:
                 k8, v8 = pack_int4_time(k8, v8)
-        ck[l] = k8
-        cv[l] = v8
-    return Cache(self_k, self_v, ck, cv, ks, vs, cross_bits=bits, **scales)
+        cache.cross_k[l] = k8
+        cache.cross_v[l] = v8
+    return cache
+
+
+def _new_cache(cfg, b, ta, max_len, dtype, quantize_cross_kv, kernel_layout, bits, mesh,
+               quantize_self_kv, device, float_cross=True) -> Cache:
+    """An unfilled cache of ``init_cache``'s shapes, the self cache zeroed.
+    float_cross=False leaves an unquantized cross cache out (None), for
+    init_cache to stack."""
+    n_layer, h = cfg.n_text_layer, local_heads(cfg.n_text_head, mesh)
+    dh = cfg.n_text_state // cfg.n_text_head  # the model's head width under any split
+    shape = (n_layer, b, h, max_len, dh)
+    self_dtype = torch.int8 if quantize_self_kv else dtype
+    self_k = torch.zeros(shape, dtype=self_dtype, device=device)
+    self_v = torch.zeros(shape, dtype=self_dtype, device=device)
+    scales = {}
+    if quantize_self_kv:
+        scales = dict(
+            self_k_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            self_v_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+        )
+    if not quantize_cross_kv:
+        if not float_cross:
+            return Cache(self_k, self_v, None, None, **scales)
+        ck = torch.empty((n_layer, b, ta, h, dh), dtype=dtype, device=device)
+        return Cache(self_k, self_v, ck, torch.empty_like(ck), **scales)
+    tpad = ta + (-ta) % 128
+    if kernel_layout:
+        cols = tpad // 2 if bits == 4 else tpad
+        ck = torch.empty((n_layer, b, h, dh, cols), dtype=torch.int8, device=device)
+        cv = torch.empty((n_layer, b, h, cols, dh), dtype=torch.int8, device=device)
+    else:
+        ck = torch.empty((n_layer, b, ta, h, dh), dtype=torch.int8, device=device)
+        cv = torch.empty_like(ck)
+    ks = torch.empty((n_layer, b, 1, h, dh), dtype=torch.float32, device=device)
+    return Cache(self_k, self_v, ck, cv, ks, torch.empty_like(ks), cross_bits=bits, **scales)
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +422,7 @@ def decoder_forward_cached(
     cfg: WhisperConfig,
     tokens: torch.Tensor,  # (B, T)
     cache: Cache,
-    pos: int,  # write offset into the self cache
+    pos,  # write offset into the self cache: an int, or a (1,) long tensor when T == 1
     *,
     pos_offset: torch.Tensor | None = None,  # (B,) per-row logical offset
     min_valid: torch.Tensor | None = None,  # (B,) first visible cache slot
@@ -394,6 +435,8 @@ def decoder_forward_cached(
     """Run the decoder over T new tokens, writing their K/V into the cache
     at ``pos`` (in place).  Returns (logits (B, T', V) float32, cache).
 
+    pos as a device tensor (one token): the step of fixed shapes that the
+    graph-replayed decode captures (``_decoder_layers``).
     pos_offset/min_valid serve LEFT-padded per-row prompts: a row whose
     real tokens start at slot ``pad`` takes positional embeddings counted
     from 0 at that slot (pos_offset=pad) and never attends to the padding
@@ -408,8 +451,61 @@ def decoder_forward_cached(
     mesh: the params and the cache are this model rank's (its heads); the
     int4 cross-attention runs through kernel #5 when tp > 1.
     """
+    layers = _decoder_layers(
+        params, cfg, tokens, cache, pos, pos_offset=pos_offset, min_valid=min_valid,
+        compute_dtype=compute_dtype, kernel_layout=kernel_layout,
+        logit_positions=logit_positions, unembed=unembed, mesh=mesh,
+    )
+    return _drive(layers, lambda l, q: _cross_kernel(cache, cfg, mesh, l, q)), cache
+
+
+def _drive(layers, launch):
+    """Run a ``_decoder_layers`` generator to its logits, answering each
+    kernel request (l, q) with ``launch(l, q)``."""
+    try:
+        req = next(layers)
+        while True:
+            req = layers.send(launch(*req))
+    except StopIteration as done:
+        return done.value
+
+
+def _cross_kernel(cache: Cache, cfg: WhisperConfig, mesh, l: int, q: torch.Tensor, out=None):
+    """Layer l's cross-attention through the hand-written kernel of the
+    cache's layout (kernel B, #5 when tp > 1, or #3), q (B, T, H, Dh)
+    float32 with K's scale folded in.  Each wrapper is looked up by its
+    module name at the call, so a wrapper put on that name sees every
+    launch.  out: the output buffer (kernels B and #3)."""
+    out = {} if out is None else {"out": out}
+    if cache.cross_bits == 4 and mesh is not None and mesh.tp > 1:
+        return cross_attention_int4_stacked_tp(
+            mesh, q, cache.cross_k, cache.cross_v, l,
+            valid_len=cfg.n_audio_ctx, n_head=cfg.n_text_head,
+        )
+    if cache.cross_bits == 4:
+        return cross_attention_int4_stacked(
+            q, cache.cross_k, cache.cross_v, l, valid_len=cfg.n_audio_ctx, **out,
+        )
+    return cross_attention_int8(
+        q, cache.cross_k[l], cache.cross_v[l], valid_len=cfg.n_audio_ctx, **out,
+    )
+
+
+def _decoder_layers(
+    params, cfg, tokens, cache, pos, *, pos_offset, min_valid, compute_dtype,
+    kernel_layout, logit_positions, unembed, mesh,
+):
+    """``decoder_forward_cached`` as a generator: where a hand-written
+    cross-attention kernel runs it yields (layer, q) and takes the
+    kernel's (B, T, H, Dh) float32 output; it returns the logits.  So the
+    graph-replayed decode can cut its captures at the launches.
+
+    pos a (1,) long tensor (T == 1): the token goes to that slot by an
+    indexed write and attends over every slot of the cache, the slots past
+    it masked (they softmax to exactly 0), so no shape depends on it."""
     p = params["decoder"]
     b, t = tokens.shape
+    static = isinstance(pos, torch.Tensor)
     quantized_self = cache.self_k_scale is not None
     if compute_dtype is not None:
         dtype = compute_dtype
@@ -419,16 +515,20 @@ def decoder_forward_cached(
         dtype = cache.cross_k.dtype if cache.cross_k.is_floating_point() else torch.float32
     else:
         dtype = cache.self_k.dtype
-    if pos_offset is None:
-        pe = p["pos_emb"][pos : pos + t]
-    else:
-        steps = pos + torch.arange(t, device=tokens.device)
+    steps = pos if static else pos + torch.arange(t, device=tokens.device)
+    if pos_offset is not None:
         pe = p["pos_emb"][torch.clamp(steps[None, :] - pos_offset[:, None], min=0)]
+    elif static:
+        pe = p["pos_emb"][pos]
+    else:
+        pe = p["pos_emb"][pos : pos + t]
     x = p["token_emb"][tokens].to(dtype) + pe.to(dtype)
-    t_valid = pos + torch.arange(t, device=tokens.device) + 1
+    t_valid = steps + 1
+    # positions past pos+t are masked for every query: leave them out,
+    # unless the step's shapes must not depend on pos
+    seen = slice(None) if static else slice(0, pos + t)
     quantized = cache.cross_k_scale is not None
     n_head = local_heads(cfg.n_text_head, mesh)
-    tp = 1 if mesh is None else mesh.tp
     for l in range(cfg.n_text_layer):
         bp = layer(p["blocks"], l)
         # --- causal self-attention against the running cache
@@ -440,18 +540,19 @@ def decoder_forward_cached(
         if quantized_self:
             k8, k_sc = _quantize_token(k_new.transpose(1, 2))
             v8, v_sc = _quantize_token(v_new.transpose(1, 2))
-            cache.self_k[l, :, :, pos : pos + t] = k8
-            cache.self_v[l, :, :, pos : pos + t] = v8
-            cache.self_k_scale[l, :, :, pos : pos + t] = k_sc
-            cache.self_v_scale[l, :, :, pos : pos + t] = v_sc
-            scales = dict(k_scale=cache.self_k_scale[l, :, :, : pos + t],
-                          v_scale=cache.self_v_scale[l, :, :, : pos + t])
+            writes = ((cache.self_k, k8), (cache.self_v, v8),
+                      (cache.self_k_scale, k_sc), (cache.self_v_scale, v_sc))
+            scales = dict(k_scale=cache.self_k_scale[l, :, :, seen],
+                          v_scale=cache.self_v_scale[l, :, :, seen])
         else:
-            cache.self_k[l, :, :, pos : pos + t] = k_new.transpose(1, 2)
-            cache.self_v[l, :, :, pos : pos + t] = v_new.transpose(1, 2)
-        # positions past pos+t are masked for every query: leave them out
+            writes = ((cache.self_k, k_new.transpose(1, 2)), (cache.self_v, v_new.transpose(1, 2)))
+        for c, new in writes:
+            if static:
+                c[l].index_copy_(2, pos, new)
+            else:
+                c[l, :, :, pos : pos + t] = new
         o = _cached_attention(
-            q, cache.self_k[l, :, :, : pos + t], cache.self_v[l, :, :, : pos + t],
+            q, cache.self_k[l, :, :, seen], cache.self_v[l, :, :, seen],
             t_valid, min_valid, **scales,
         )
         x = x + row_parallel_linear(bp["attn"]["out"], merge_heads(o), mesh)
@@ -461,21 +562,8 @@ def decoder_forward_cached(
         if quantized:
             # K's dequant scale folds into q, V's after the probs matmul
             qx = qx * cache.cross_k_scale[l].to(qx.dtype)
-            if kernel_layout and cache.cross_bits == 4 and tp > 1:
-                ox = cross_attention_int4_stacked_tp(
-                    mesh, qx.float().contiguous(), cache.cross_k, cache.cross_v, l,
-                    valid_len=cfg.n_audio_ctx, n_head=cfg.n_text_head,
-                ).to(x.dtype)
-            elif kernel_layout and cache.cross_bits == 4:
-                ox = cross_attention_int4_stacked(
-                    qx.float().contiguous(), cache.cross_k, cache.cross_v, l,
-                    valid_len=cfg.n_audio_ctx,
-                ).to(x.dtype)
-            elif kernel_layout:
-                ox = cross_attention_int8(
-                    qx.float().contiguous(), cache.cross_k[l], cache.cross_v[l],
-                    valid_len=cfg.n_audio_ctx,
-                ).to(x.dtype)
+            if kernel_layout:
+                ox = (yield l, qx.float().contiguous()).to(x.dtype)
             else:
                 ox = _cached_attention(
                     qx, cache.cross_k[l].to(x.dtype).transpose(1, 2),
@@ -497,7 +585,7 @@ def decoder_forward_cached(
     # would round away the argmax margin
     if unembed is None:
         unembed = p["token_emb"].float()
-    return torch.matmul(x.float(), unembed.T), cache
+    return torch.matmul(x.float(), unembed.T)
 
 
 # ---------------------------------------------------------------------------
@@ -708,6 +796,226 @@ def _sample_loop(
     return tokens, lengths, sum_lp
 
 
+# ---------------------------------------------------------------------------
+# Greedy decode replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+READBACK_EVERY = 16  # graph-replayed steps between reads of the finished flags
+MAX_SESSIONS = 4  # greedy sessions (buffers and graphs) kept between decodes
+_sessions: OrderedDict = OrderedDict()  # (shape key, copy) -> _GreedySession, LRU order
+_sessions_lock = threading.Lock()
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+class _GreedySession:
+    """Greedy decodes of one shape, their state in fixed buffers: the
+    caches, the float32 unembedding, the suppress mask, the prompts' pads,
+    the tokens, the rule state (last, penultimate, highest timestamp),
+    finished flags, summed logprobs, and the step's cache slot and token
+    column as device tensors.  On the card the step from step 2 on (where
+    the logit rules no longer branch on the step) is captured once as CUDA
+    graphs cut at each hand-written cross-attention kernel's launch; a
+    replayed step launches those kernels between the graphs through their
+    wrappers (``_cross_kernel``), into a fixed output buffer.  Steps 0 and
+    1 run the same code eagerly, and every step does on the CPU."""
+
+    def __init__(self, params, cfg, b, ta, p_len, max_new, dtype, quantize_cross_kv,
+                 kernel_layout, bits, quantize_self_kv, use_timestamps, suppress, prompted,
+                 mesh, device):
+        self.leaves = _leaves(params["decoder"])  # held: the graphs read them in place
+        self.params, self.cfg, self.mesh = {"decoder": params["decoder"]}, cfg, mesh
+        self.st = SpecialTokens.for_config(cfg)
+        self.p_len, self.max_new, self.dtype = p_len, max_new, dtype
+        self.kernel_layout, self.use_timestamps = kernel_layout, use_timestamps
+        self.cache_kw = dict(quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
+                             kv_bits=bits, mesh=mesh, quantize_self_kv=quantize_self_kv)
+        self.cache = _new_cache(cfg, b, ta, p_len + max_new, dtype, quantize_cross_kv,
+                                kernel_layout, bits, mesh, quantize_self_kv, device)
+        token_emb = params["decoder"]["token_emb"]
+        self.unembed = torch.empty(token_emb.shape, dtype=torch.float32, device=device)
+        self.suppress = (torch.zeros(cfg.n_vocab, dtype=torch.bool, device=device)
+                         if suppress else None)
+        self.pad = torch.zeros(b, dtype=torch.long, device=device) if prompted else None
+        self.tokens = torch.empty((b, max_new), dtype=torch.long, device=device)
+        self.last, self.penult, self.max_ts = (
+            torch.zeros(b, dtype=torch.long, device=device) for _ in range(3))
+        self.finished = torch.zeros(b, dtype=torch.bool, device=device)
+        self.sum_lp = torch.zeros(b, dtype=torch.float32, device=device)
+        self.pos = torch.zeros(1, dtype=torch.long, device=device)  # the slot `last` goes to
+        self.col = torch.zeros(1, dtype=torch.long, device=device)  # the column a step writes
+        self.space_blank_id = self.max_initial_ts_index = None
+        h, dh = local_heads(cfg.n_text_head, mesh), cfg.n_text_state // cfg.n_text_head
+        self.out = torch.zeros((b, 1, h, dh), dtype=torch.float32, device=device)
+        self.graphs: list = []
+        self.requests: list = []  # (layer, q) of each kernel launch between the graphs
+        self.busy = False
+        if device.type == "cuda":
+            self._capture()
+
+    def _launch(self, l, q):
+        return _cross_kernel(self.cache, self.cfg, self.mesh, l, q, out=self.out)
+
+    def _pick(self, logits, step: int) -> None:
+        """The rules at ``step``, the argmax and the bookkeeping of
+        ``_sample_loop`` at temperature 0, in place."""
+        st = self.st
+        masked = apply_logit_rules(
+            logits, st, step=step, last_token=self.last, penultimate_token=self.penult,
+            max_ts_token=self.max_ts, suppress_mask=self.suppress,
+            use_timestamps=self.use_timestamps,
+            max_initial_timestamp_index=self.max_initial_ts_index,
+            space_blank_id=self.space_blank_id,
+        )
+        next_tok = masked.argmax(dim=-1)
+        logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]
+        finished = self.finished
+        next_tok = torch.where(finished, st.eot, next_tok)
+        self.sum_lp.add_(torch.where(finished, 0.0, logprob))
+        self.max_ts.copy_(torch.where((next_tok >= st.timestamp_begin) & ~finished,
+                                      torch.maximum(self.max_ts, next_tok), self.max_ts))
+        finished |= next_tok == st.eot
+        self.tokens.index_copy_(1, self.col, next_tok[:, None])
+        self.penult.copy_(self.last)
+        self.last.copy_(next_tok)
+        self.pos.add_(1)
+        self.col.add_(1)
+
+    def _step(self, step: int):
+        """Step ``step`` >= 1 as a ``_decoder_layers`` generator: the
+        decoder over ``last`` at slot ``pos``, then ``_pick``."""
+        logits = yield from _decoder_layers(
+            self.params, self.cfg, self.last[:, None], self.cache, self.pos,
+            pos_offset=self.pad, min_valid=self.pad, compute_dtype=self.dtype,
+            kernel_layout=self.kernel_layout, logit_positions=None, unembed=self.unembed,
+            mesh=self.mesh,
+        )
+        self._pick(logits[:, -1], step)
+
+    def _capture(self) -> None:
+        """Capture step 2's pieces, one graph each, in one memory pool: a
+        warm-up step on a side stream first (kernels not launched), then
+        the captures on it.  The buffers it writes are all set again by
+        ``decode`` before they are read."""
+        dev = self.out.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _drive(self._step(2), lambda l, q: self.out)
+            pool = torch.cuda.graph_pool_handle()
+            pieces = self._step(2)
+            answer = None
+            while True:
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    req = pieces.send(answer)
+                except StopIteration:
+                    req = None
+                finally:
+                    g.capture_end()
+                self.graphs.append(g)
+                if req is None:
+                    break
+                self.requests.append(req)  # keeps q, read by the launch, alive
+                answer = self.out
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def _replay(self) -> None:
+        for g, req in zip(self.graphs, self.requests):
+            g.replay()
+            self._launch(*req)
+        self.graphs[-1].replay()
+
+    def decode(self, params, audio_states, prompt, pad_len, *, sot_len, last_init,
+               penult_init, suppress_mask, space_blank_id, max_initial_ts_index) -> DecodeResult:
+        """Cache, prefill and the greedy loop, in the session's buffers; the
+        finished flags are read every ``READBACK_EVERY`` steps and at the
+        last (steps after every row has finished write EOT and add 0)."""
+        st, cfg = self.st, self.cfg
+        self.space_blank_id, self.max_initial_ts_index = space_blank_id, max_initial_ts_index
+        with trace.span("decode.prefill"):
+            init_cache(params, cfg, audio_states, self.p_len + self.max_new, dtype=self.dtype,
+                       into=self.cache, **self.cache_kw)
+            self.unembed.copy_(params["decoder"]["token_emb"])
+            if self.suppress is not None:
+                self.suppress.copy_(suppress_mask)
+            if self.pad is not None:
+                self.pad.copy_(pad_len)
+            logits, _ = decoder_forward_cached(
+                params, cfg, prompt, self.cache, 0, logit_positions=(self.p_len - sot_len, -1),
+                pos_offset=self.pad, min_valid=self.pad, compute_dtype=self.dtype,
+                kernel_layout=self.kernel_layout, unembed=self.unembed, mesh=self.mesh,
+            )
+        no_speech_prob = _no_speech_prob(st, cfg, logits[:, 0])
+        self.tokens.fill_(st.eot)
+        self.last.copy_(last_init)
+        self.penult.copy_(penult_init)
+        self.max_ts.fill_(st.timestamp_begin - 1)
+        self.finished.zero_()
+        self.sum_lp.zero_()
+        self.pos.fill_(self.p_len - 1)  # `last` sits in the prompt's last slot
+        self.col.zero_()
+        for step in range(self.max_new):
+            with trace.span("decode.step"):
+                trace.count("decode.steps")
+                if step == 0:
+                    self._pick(logits[:, 1], 0)
+                elif step >= 2 and self.graphs:
+                    self._replay()
+                    trace.count("decode.graph_steps")
+                else:
+                    _drive(self._step(step), self._launch)
+                if (step + 1) % READBACK_EVERY == 0 or step + 1 == self.max_new:
+                    with trace.span("decode.wait"):
+                        if bool(self.finished.all()):
+                            break
+        tokens = self.tokens.clone()
+        return DecodeResult(tokens, (tokens != st.eot).sum(dim=-1), self.sum_lp.clone(),
+                            no_speech_prob)
+
+
+def _graphs_serve(leaves, audio_states, temperature: float, mesh) -> bool:
+    """Whether a decode runs as replayed graphs: greedy, on the card, with
+    no model split (kernel #5 and the row-parallel all-reduce stay eager)
+    and nothing requiring grad (``leaves``: the decoder's parameters)."""
+    return (audio_states.is_cuda and temperature == 0 and (mesh is None or mesh.tp == 1)
+            and not audio_states.requires_grad and not any(t.requires_grad for t in leaves))
+
+
+def _acquire_session(key: tuple, make) -> _GreedySession | None:
+    """A free session of ``key`` (one decode holds a session at a time),
+    made with ``make()`` when none is free; the least recently used free
+    sessions go past ``MAX_SESSIONS``.  None when every kept session is
+    busy (the decode runs eagerly)."""
+    with _sessions_lock:
+        i = 0
+        while (key, i) in _sessions:
+            sess = _sessions[(key, i)]
+            if not sess.busy:
+                _sessions.move_to_end((key, i))
+                sess.busy = True
+                return sess
+            i += 1
+        while len(_sessions) >= MAX_SESSIONS:
+            free = next((k for k, s in _sessions.items() if not s.busy), None)
+            if free is None:
+                return None
+            del _sessions[free]
+        sess = _sessions[(key, i)] = make()
+        sess.busy = True
+        return sess
+
+
+def _release_session(sess: _GreedySession) -> None:
+    with _sessions_lock:
+        sess.busy = False
+
+
 def _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b, g):
     """Best of g sampling candidates per element by average logprob
     (openai's MaximumLikelihoodRanker over a best_of group)."""
@@ -780,6 +1088,24 @@ def _decode_rows(
             pad_len = pad_len.repeat_interleave(group, dim=0)
     b, p_len = prompt.shape
     kernel_layout = _kernel_layout(quantize_cross_kv, use_pallas_kernel, kv_bits)
+    leaves = _leaves(params["decoder"])
+    if _graphs_serve(leaves, audio_states, temperature, mesh):
+        ta, bits = audio_states.shape[1], (kv_bits if kernel_layout else 8)
+        shape = (b, ta, p_len, max_new_tokens, dtype, quantize_cross_kv, kernel_layout, bits,
+                 quantize_self_kv, use_timestamps, suppress_mask is not None, pad_len is not None)
+        sess = _acquire_session(
+            (tuple(map(id, leaves)), audio_states.device) + shape,
+            lambda: _GreedySession(params, cfg, *shape, mesh=mesh, device=audio_states.device),
+        )
+        if sess is not None:
+            try:
+                return sess.decode(
+                    params, audio_states, prompt, pad_len, sot_len=sot_len, last_init=last_init,
+                    penult_init=penult_init, suppress_mask=suppress_mask,
+                    space_blank_id=space_blank_id, max_initial_ts_index=max_initial_ts_index,
+                )
+            finally:
+                _release_session(sess)
     unembed = params["decoder"]["token_emb"].float()
     row_kw = dict(pos_offset=pad_len, min_valid=pad_len, compute_dtype=dtype,
                   kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)

@@ -153,7 +153,19 @@ def _scratch(q: torch.Tensor, stream: int, n_counters: int, n_work: int):
     return counters, work
 
 
-def _launch_int4_stacked(name, q, k4_all, v4_all, layer, valid_len) -> torch.Tensor:
+def _check_out(name: str, out: torch.Tensor | None, q: torch.Tensor) -> torch.Tensor:
+    """``out`` where it can take the kernel's (B, Tq, H, Dh) float32 output
+    (a caller's buffer at a fixed address), else a new tensor."""
+    if out is None:
+        return torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if out.shape != q.shape or out.dtype != torch.float32 or out.device != q.device \
+            or not out.is_contiguous():
+        raise ValueError(f"{name}: out must be a contiguous float32 tensor of q's shape "
+                         f"{tuple(q.shape)} on {q.device}")
+    return out
+
+
+def _launch_int4_stacked(name, q, k4_all, v4_all, layer, valid_len, out=None) -> torch.Tensor:
     """Kernel B on layer ``layer`` of a stacked packed cache, read in place
     through a pointer offset (no per-layer copy); CUDA tensors only."""
     b, tq, h, dh = q.shape
@@ -173,7 +185,7 @@ def _launch_int4_stacked(name, q, k4_all, v4_all, layer, valid_len) -> torch.Ten
     if not 1 <= valid_len <= 2 * half:
         raise ValueError(f"valid_len {valid_len} outside [1, {2 * half}]")
     lib = _library()
-    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    out = _check_out(name, out, q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     # each live chunk's (max, sum, acc[Dh]) per query row, combined in the launch
     chunks = -(-((valid_len + 1) // 2) // INT4_CHUNK)
@@ -198,23 +210,25 @@ def cross_attention_int4_stacked(
     layer: int,
     *,
     valid_len: int,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Decode cross-attention of q (B, Tq, H, Dh) float32 (K scale folded
     in) against layer ``layer`` of the stacked packed cache, k4_all
     (L, B, H, Dh, Tpad/2) and v4_all (L, B, H, Tpad/2, Dh) int8.
-    Returns (B, Tq, H, Dh) float32 in integer units.
+    Returns (B, Tq, H, Dh) float32 in integer units, in ``out`` when given
+    (a contiguous float32 tensor of q's shape).
 
     CUDA tensors: the kernel, reading the layer in place through a
     pointer offset (no per-layer copy), or an error.  CPU tensors: the
     plain version.
     """
     if q.device.type == "cpu":
-        return cross_attention_int4_reference(
-            q, k4_all[layer], v4_all[layer], valid_len=valid_len
-        )
+        ref = cross_attention_int4_reference(q, k4_all[layer], v4_all[layer], valid_len=valid_len)
+        return ref if out is None else _check_out("cross_attention_int4_stacked", out, q).copy_(ref)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_int4_stacked: unsupported device {q.device}")
-    out = _launch_int4_stacked("cross_attention_int4_stacked", q, k4_all, v4_all, layer, valid_len)
+    out = _launch_int4_stacked("cross_attention_int4_stacked", q, k4_all, v4_all, layer,
+                               valid_len, out)
     cross_attention_int4_stacked.launches += 1
     return out
 
@@ -333,26 +347,29 @@ def check_int8_kernel_args(q: torch.Tensor, k8t: torch.Tensor, v8: torch.Tensor,
 
 
 def cross_attention_int8(
-    q: torch.Tensor, k8t: torch.Tensor, v8: torch.Tensor, *, valid_len: int
+    q: torch.Tensor, k8t: torch.Tensor, v8: torch.Tensor, *, valid_len: int,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Decode cross-attention of q (B, Tq, H, Dh) float32 (K scale folded
     in) against one layer of the int8 kernel-layout cache, k8t
     (B, H, Dh, Tpad) and v8 (B, H, Tpad, Dh).  Returns (B, Tq, H, Dh)
-    float32 in integer units.
+    float32 in integer units, in ``out`` when given (a contiguous float32
+    tensor of q's shape).
 
     CUDA tensors: the kernel, or an error (``check_int8_kernel_args``); the
     decoder passes the layer's view ``cache.cross_k[l]`` in place.  CPU
     tensors: the plain version.
     """
     if q.device.type == "cpu":
-        return cross_attention_int8_reference(q, k8t, v8, valid_len=valid_len)
+        ref = cross_attention_int8_reference(q, k8t, v8, valid_len=valid_len)
+        return ref if out is None else _check_out("cross_attention_int8", out, q).copy_(ref)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_int8: unsupported device {q.device}")
     check_int8_kernel_args(q, k8t, v8, valid_len)
     b, tq, h, dh = q.shape
     tpad = k8t.shape[-1]
     lib = _library_int8()
-    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    out = _check_out("cross_attention_int8", out, q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     # each live chunk's (max, sum, acc[Dh]) per query row, combined in the
     # launch; the counters and a decode step's workspace are kernel B's

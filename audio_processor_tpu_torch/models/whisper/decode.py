@@ -13,15 +13,20 @@ request's trace (``decode.prefill``, ``decode.step``, ``decode.wait``;
 ``runtime/trace.py``), and the counter ``decode.steps`` counts the steps:
 a step's host issue time is its span less its wait.
 
-On the card a greedy decode (temperature 0, no model split, nothing
-requiring grad) runs in a session of fixed buffers kept per shape
-(``_GreedySession``): its steps from the third on replay CUDA graphs
-captured once, cut at each launch of a hand-written cross-attention
-kernel, which runs between them through its wrapper; the finished flags
-are read every ``READBACK_EVERY`` steps, and the counter
-``decode.graph_steps`` counts the replayed steps.  Every other decode
-(the CPU, sampling, tp > 1, beam search) runs the eager loop, which reads
-the flags every step.
+Every greedy or sampling decode runs in one loop, a session of fixed
+buffers (``_DecodeSession``): each step has fixed shapes (the token's
+slot is a device tensor, and self-attention reads every slot of the
+cache with the later ones masked, as the JAX package's while_loop does),
+and the finished flags are read every ``READBACK_EVERY`` steps.  On the
+card a greedy decode (temperature 0, no model split, nothing requiring
+grad) takes a session kept per shape, whose steps from the third on
+replay CUDA graphs captured once, cut at each launch of a hand-written
+cross-attention kernel, which runs between them through its wrapper; the
+counter ``decode.graph_steps`` counts the replayed steps.  Every other
+decode (the CPU, sampling, tp > 1, grad, or every kept session of its
+shape busy) runs a session made for it alone, eagerly, to the same
+tokens: no decode falls back to another loop.  Beam search has its own
+loop, which reads the flags every step.
 
 Differences in idiom from the JAX version:
   * The self-attention cache is head-major, (L, B, H, T_max, Dh), so the
@@ -31,9 +36,11 @@ Differences in idiom from the JAX version:
     reorders only the written positions of the self cache, in place (the
     JAX version gathers the whole cache along the batch axis).
   * The token loops are Python loops that stop once every row has emitted
-    EOT (greedy) or every element holds its finished hypotheses (beam), the
-    JAX package's lax.while_loop conditions.  The outputs are the same:
-    the JAX loops' extra final forward produces logits nobody reads.
+    EOT (greedy/sampling, at the next read of the flags) or every element
+    holds its finished hypotheses (beam), the JAX package's lax.while_loop
+    conditions.  The outputs are the same: steps past a row's EOT write
+    EOT and add 0, and the JAX loops' extra final forward produces logits
+    nobody reads.
   * Sampling at T > 0 draws by Gumbel-max from a counter-based stream
     keyed by (``rng_seed``, the row's index in the whole batch, the step,
     the vocab id), so a row's draws do not depend on the batch shape or
@@ -436,7 +443,7 @@ def decoder_forward_cached(
     at ``pos`` (in place).  Returns (logits (B, T', V) float32, cache).
 
     pos as a device tensor (one token): the step of fixed shapes that the
-    graph-replayed decode captures (``_decoder_layers``).
+    decode session runs and captures (``_decoder_layers``).
     pos_offset/min_valid serve LEFT-padded per-row prompts: a row whose
     real tokens start at slot ``pad`` takes positional embeddings counted
     from 0 at that slot (pos_offset=pad) and never attends to the padding
@@ -716,93 +723,13 @@ def sample_tokens(masked: torch.Tensor, temperature: float, row_keys: torch.Tens
     return (masked.double() / temperature - torch.log(-torch.log(u))).argmax(dim=-1)
 
 
-def _sample_loop(
-    params: Params,
-    cfg: WhisperConfig,
-    st: SpecialTokens,
-    cache: Cache,
-    last_logits: torch.Tensor,  # (B, V) logits for the first sample
-    *,
-    start_pos: int,  # cache slot of the first sampled token
-    max_new_tokens: int,
-    use_timestamps: bool,
-    suppress_mask,
-    space_blank_id,
-    temperature: float,
-    rng_seed: int,
-    last_init: torch.Tensor,  # (B,)
-    penult_init: torch.Tensor,  # (B,)
-    pos_offset: torch.Tensor | None = None,
-    min_valid: torch.Tensor | None = None,
-    compute_dtype=None,
-    max_initial_ts_index: int | None = 50,
-    kernel_layout: bool = False,
-    unembed: torch.Tensor | None = None,
-    mesh=None,
-):
-    """Sample until every row has emitted EOT or max_new_tokens is reached;
-    shared by plain and prompted decode.  Returns (tokens (B, max_new),
-    lengths, sum_logprob)."""
-    b, dev = last_logits.shape[0], last_logits.device
-    tb = st.timestamp_begin
-    tokens = torch.full((b, max_new_tokens), st.eot, dtype=torch.long, device=dev)
-    last = last_init.long()
-    penult = penult_init.long()
-    max_ts = torch.full((b,), tb - 1, dtype=torch.long, device=dev)
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    sum_lp = torch.zeros(b, dtype=torch.float32, device=dev)
-    if temperature > 0:
-        # the rows' indices in the whole batch, across the data ranks
-        row0 = 0 if mesh is None else mesh.data_rank * b
-        row_keys = sampling_row_keys(rng_seed, torch.arange(row0, row0 + b, device=dev))
-    logits = last_logits
-    for step in range(max_new_tokens):
-        with trace.span("decode.step"):
-            trace.count("decode.steps")
-            masked = apply_logit_rules(
-                logits, st, step=step, last_token=last, penultimate_token=penult,
-                max_ts_token=max_ts, suppress_mask=suppress_mask,
-                use_timestamps=use_timestamps,
-                max_initial_timestamp_index=max_initial_ts_index,
-                space_blank_id=space_blank_id,
-            )
-            if temperature > 0:
-                next_tok = sample_tokens(masked, temperature, row_keys, step)
-            else:
-                next_tok = masked.argmax(dim=-1)
-            logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]
-            next_tok = torch.where(finished, st.eot, next_tok)
-            sum_lp = sum_lp + torch.where(finished, 0.0, logprob)
-            max_ts = torch.where(
-                (next_tok >= tb) & ~finished, torch.maximum(max_ts, next_tok), max_ts
-            )
-            finished = finished | (next_tok == st.eot)
-            tokens[:, step] = next_tok
-            penult, last = last, next_tok
-            if step + 1 == max_new_tokens:
-                break
-            # the step's one read-back: the host waits here for the card
-            with trace.span("decode.wait"):
-                done = bool(finished.all())
-            if done:
-                break
-            logits, _ = decoder_forward_cached(
-                params, cfg, next_tok[:, None], cache, start_pos + step,
-                pos_offset=pos_offset, min_valid=min_valid, compute_dtype=compute_dtype,
-                kernel_layout=kernel_layout, unembed=unembed, mesh=mesh,
-            )
-            logits = logits[:, -1]
-    lengths = (tokens != st.eot).sum(dim=-1)
-    return tokens, lengths, sum_lp
-
-
 # ---------------------------------------------------------------------------
-# Greedy decode replayed as CUDA graphs
+# The decode session: fixed buffers, replayed as CUDA graphs where kept
 # ---------------------------------------------------------------------------
 
-READBACK_EVERY = 16  # graph-replayed steps between reads of the finished flags
-MAX_SESSIONS = 4  # greedy sessions (buffers and graphs) kept between decodes
-_sessions: OrderedDict = OrderedDict()  # (shape key, copy) -> _GreedySession, LRU order
+READBACK_EVERY = 16  # decode steps between reads of the finished flags
+MAX_SESSIONS = 4  # captured sessions (buffers and graphs) kept between decodes
+_sessions: OrderedDict = OrderedDict()  # (shape key, copy) -> _DecodeSession, LRU order
 _sessions_lock = threading.Lock()
 
 
@@ -812,17 +739,20 @@ def _leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
-class _GreedySession:
-    """Greedy decodes of one shape, their state in fixed buffers: the
-    caches, the float32 unembedding, the suppress mask, the prompts' pads,
-    the tokens, the rule state (last, penultimate, highest timestamp),
-    finished flags, summed logprobs, and the step's cache slot and token
-    column as device tensors.  On the card the step from step 2 on (where
-    the logit rules no longer branch on the step) is captured once as CUDA
-    graphs cut at each hand-written cross-attention kernel's launch; a
-    replayed step launches those kernels between the graphs through their
-    wrappers (``_cross_kernel``), into a fixed output buffer.  Steps 0 and
-    1 run the same code eagerly, and every step does on the CPU."""
+class _DecodeSession:
+    """Greedy and sampling decodes of one shape, their state in fixed
+    buffers: the caches, the float32 unembedding, the suppress mask, the
+    prompts' pads, the rows' sampling keys, the tokens, the rule state
+    (last, penultimate, highest timestamp), finished flags, summed
+    logprobs, and the step's cache slot and token column as device
+    tensors.  Every step has fixed shapes; steps run eagerly unless
+    ``_capture`` has run (``_acquire_session`` calls it for the greedy
+    sessions it keeps on the card): then the step from step 2 on (where the
+    logit rules no longer branch on the step) replays CUDA graphs cut at
+    each hand-written cross-attention kernel's launch, and the kernels run
+    between the graphs through their wrappers (``_cross_kernel``), into a
+    fixed output buffer.  A captured session and an eager one give the same
+    tokens."""
 
     def __init__(self, params, cfg, b, ta, p_len, max_new, dtype, quantize_cross_kv,
                  kernel_layout, bits, quantize_self_kv, use_timestamps, suppress, prompted,
@@ -841,6 +771,7 @@ class _GreedySession:
         self.suppress = (torch.zeros(cfg.n_vocab, dtype=torch.bool, device=device)
                          if suppress else None)
         self.pad = torch.zeros(b, dtype=torch.long, device=device) if prompted else None
+        self.row_keys = torch.zeros(b, dtype=torch.long, device=device)
         self.tokens = torch.empty((b, max_new), dtype=torch.long, device=device)
         self.last, self.penult, self.max_ts = (
             torch.zeros(b, dtype=torch.long, device=device) for _ in range(3))
@@ -849,20 +780,19 @@ class _GreedySession:
         self.pos = torch.zeros(1, dtype=torch.long, device=device)  # the slot `last` goes to
         self.col = torch.zeros(1, dtype=torch.long, device=device)  # the column a step writes
         self.space_blank_id = self.max_initial_ts_index = None
+        self.temperature = 0.0
         h, dh = local_heads(cfg.n_text_head, mesh), cfg.n_text_state // cfg.n_text_head
         self.out = torch.zeros((b, 1, h, dh), dtype=torch.float32, device=device)
         self.graphs: list = []
         self.requests: list = []  # (layer, q) of each kernel launch between the graphs
         self.busy = False
-        if device.type == "cuda":
-            self._capture()
 
     def _launch(self, l, q):
         return _cross_kernel(self.cache, self.cfg, self.mesh, l, q, out=self.out)
 
     def _pick(self, logits, step: int) -> None:
-        """The rules at ``step``, the argmax and the bookkeeping of
-        ``_sample_loop`` at temperature 0, in place."""
+        """The rules at ``step``, the draw (the argmax at temperature 0),
+        and the bookkeeping, in place."""
         st = self.st
         masked = apply_logit_rules(
             logits, st, step=step, last_token=self.last, penultimate_token=self.penult,
@@ -871,7 +801,10 @@ class _GreedySession:
             max_initial_timestamp_index=self.max_initial_ts_index,
             space_blank_id=self.space_blank_id,
         )
-        next_tok = masked.argmax(dim=-1)
+        if self.temperature > 0:
+            next_tok = sample_tokens(masked, self.temperature, self.row_keys, step)
+        else:
+            next_tok = masked.argmax(dim=-1)
         logprob = torch.log_softmax(masked, dim=-1).gather(1, next_tok[:, None])[:, 0]
         finished = self.finished
         next_tok = torch.where(finished, st.eot, next_tok)
@@ -897,10 +830,10 @@ class _GreedySession:
         self._pick(logits[:, -1], step)
 
     def _capture(self) -> None:
-        """Capture step 2's pieces, one graph each, in one memory pool: a
-        warm-up step on a side stream first (kernels not launched), then
-        the captures on it.  The buffers it writes are all set again by
-        ``decode`` before they are read."""
+        """Capture step 2's greedy pieces, one graph each, in one memory
+        pool: a warm-up step on a side stream first (kernels not launched),
+        then the captures on it.  The buffers it writes are all set again
+        by ``decode`` before they are read."""
         dev = self.out.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -932,12 +865,17 @@ class _GreedySession:
         self.graphs[-1].replay()
 
     def decode(self, params, audio_states, prompt, pad_len, *, sot_len, last_init,
-               penult_init, suppress_mask, space_blank_id, max_initial_ts_index) -> DecodeResult:
-        """Cache, prefill and the greedy loop, in the session's buffers; the
-        finished flags are read every ``READBACK_EVERY`` steps and at the
-        last (steps after every row has finished write EOT and add 0)."""
+               penult_init, suppress_mask, space_blank_id, max_initial_ts_index,
+               temperature=0.0, rng_seed=0) -> DecodeResult:
+        """Cache, prefill (the no-speech read at the fixed sot slot) and the
+        loop, in the session's buffers; the finished flags are read every
+        ``READBACK_EVERY`` steps and at the last (steps after every row has
+        finished write EOT and add 0).  temperature > 0 samples each row
+        from its stream (``sampling_row_keys`` over the rows' indices in
+        the whole batch, across the data ranks)."""
         st, cfg = self.st, self.cfg
         self.space_blank_id, self.max_initial_ts_index = space_blank_id, max_initial_ts_index
+        self.temperature = temperature
         with trace.span("decode.prefill"):
             init_cache(params, cfg, audio_states, self.p_len + self.max_new, dtype=self.dtype,
                        into=self.cache, **self.cache_kw)
@@ -946,6 +884,11 @@ class _GreedySession:
                 self.suppress.copy_(suppress_mask)
             if self.pad is not None:
                 self.pad.copy_(pad_len)
+            if temperature > 0:
+                b = self.row_keys.shape[0]
+                row0 = 0 if self.mesh is None else self.mesh.data_rank * b
+                self.row_keys.copy_(sampling_row_keys(
+                    rng_seed, torch.arange(row0, row0 + b, device=self.row_keys.device)))
             logits, _ = decoder_forward_cached(
                 params, cfg, prompt, self.cache, 0, logit_positions=(self.p_len - sot_len, -1),
                 pos_offset=self.pad, min_valid=self.pad, compute_dtype=self.dtype,
@@ -980,18 +923,21 @@ class _GreedySession:
 
 
 def _graphs_serve(leaves, audio_states, temperature: float, mesh) -> bool:
-    """Whether a decode runs as replayed graphs: greedy, on the card, with
-    no model split (kernel #5 and the row-parallel all-reduce stay eager)
-    and nothing requiring grad (``leaves``: the decoder's parameters)."""
+    """Whether a decode's session is kept and captured: greedy (a sampled
+    step's draw depends on the host's step), on the card, with no model
+    split (kernel #5 and the row-parallel all-reduce stay eager) and
+    nothing requiring grad (``leaves``: the decoder's parameters).  Every
+    other decode runs a session of its own eagerly."""
     return (audio_states.is_cuda and temperature == 0 and (mesh is None or mesh.tp == 1)
             and not audio_states.requires_grad and not any(t.requires_grad for t in leaves))
 
 
-def _acquire_session(key: tuple, make) -> _GreedySession | None:
-    """A free session of ``key`` (one decode holds a session at a time),
-    made with ``make()`` when none is free; the least recently used free
-    sessions go past ``MAX_SESSIONS``.  None when every kept session is
-    busy (the decode runs eagerly)."""
+def _acquire_session(key: tuple, make) -> _DecodeSession:
+    """A free kept session of ``key`` (one decode holds a session at a
+    time); when none is free, one made with ``make()`` and captured, the
+    least recently used free sessions going past ``MAX_SESSIONS``.  When
+    every kept session is busy, ``make()`` uncaptured and not kept: that
+    decode runs its session eagerly, to the same tokens."""
     with _sessions_lock:
         i = 0
         while (key, i) in _sessions:
@@ -1004,14 +950,16 @@ def _acquire_session(key: tuple, make) -> _GreedySession | None:
         while len(_sessions) >= MAX_SESSIONS:
             free = next((k for k, s in _sessions.items() if not s.busy), None)
             if free is None:
-                return None
+                return make()
             del _sessions[free]
-        sess = _sessions[(key, i)] = make()
+        sess = make()
+        sess._capture()
+        _sessions[(key, i)] = sess
         sess.busy = True
         return sess
 
 
-def _release_session(sess: _GreedySession) -> None:
+def _release_session(sess: _DecodeSession) -> None:
     with _sessions_lock:
         sess.busy = False
 
@@ -1073,9 +1021,9 @@ def _decode_rows(
     quantize_self_kv: bool = False,
 ) -> DecodeResult:
     """The greedy/sampling decode of greedy_decode and
-    prompted_greedy_decode: best_of expansion, cache, prefill (no-speech
-    read at the fixed sot slot), the sampling loop and the ranking."""
-    st = SpecialTokens.for_config(cfg)
+    prompted_greedy_decode: best_of expansion, the decode in a session
+    (kept and captured where ``_graphs_serve``, else made for this decode
+    and run eagerly) and the ranking."""
     dtype = getattr(torch, dtype_name)
     b0 = audio_states.shape[0]
     group = best_of if (best_of > 1 and temperature > 0) else 1
@@ -1089,55 +1037,29 @@ def _decode_rows(
     b, p_len = prompt.shape
     kernel_layout = _kernel_layout(quantize_cross_kv, use_pallas_kernel, kv_bits)
     leaves = _leaves(params["decoder"])
+    ta, bits = audio_states.shape[1], (kv_bits if kernel_layout else 8)
+    shape = (b, ta, p_len, max_new_tokens, dtype, quantize_cross_kv, kernel_layout, bits,
+             quantize_self_kv, use_timestamps, suppress_mask is not None, pad_len is not None)
+
+    def make():
+        return _DecodeSession(params, cfg, *shape, mesh=mesh, device=audio_states.device)
+
     if _graphs_serve(leaves, audio_states, temperature, mesh):
-        ta, bits = audio_states.shape[1], (kv_bits if kernel_layout else 8)
-        shape = (b, ta, p_len, max_new_tokens, dtype, quantize_cross_kv, kernel_layout, bits,
-                 quantize_self_kv, use_timestamps, suppress_mask is not None, pad_len is not None)
-        sess = _acquire_session(
-            (tuple(map(id, leaves)), audio_states.device) + shape,
-            lambda: _GreedySession(params, cfg, *shape, mesh=mesh, device=audio_states.device),
+        sess = _acquire_session((tuple(map(id, leaves)), audio_states.device) + shape, make)
+    else:
+        sess = make()
+    try:
+        res = sess.decode(
+            params, audio_states, prompt, pad_len, sot_len=sot_len, last_init=last_init,
+            penult_init=penult_init, suppress_mask=suppress_mask, space_blank_id=space_blank_id,
+            max_initial_ts_index=max_initial_ts_index, temperature=temperature,
+            rng_seed=rng_seed,
         )
-        if sess is not None:
-            try:
-                return sess.decode(
-                    params, audio_states, prompt, pad_len, sot_len=sot_len, last_init=last_init,
-                    penult_init=penult_init, suppress_mask=suppress_mask,
-                    space_blank_id=space_blank_id, max_initial_ts_index=max_initial_ts_index,
-                )
-            finally:
-                _release_session(sess)
-    unembed = params["decoder"]["token_emb"].float()
-    row_kw = dict(pos_offset=pad_len, min_valid=pad_len, compute_dtype=dtype,
-                  kernel_layout=kernel_layout, unembed=unembed, mesh=mesh)
-    with trace.span("decode.prefill"):
-        cache = init_cache(
-            params, cfg, audio_states, p_len + max_new_tokens, dtype=dtype,
-            quantize_cross_kv=quantize_cross_kv, kernel_layout=kernel_layout,
-            kv_bits=kv_bits, mesh=mesh, quantize_self_kv=quantize_self_kv,
-        )
-        # prefill; unembed only the sot slot (fixed: every row ends in the
-        # same sot sequence) and the last one
-        logits, cache = decoder_forward_cached(
-            params, cfg, prompt, cache, 0, logit_positions=(p_len - sot_len, -1), **row_kw,
-        )
-    no_speech_prob = _no_speech_prob(st, cfg, logits[:, 0])
-    tokens, lengths, sum_logprob = _sample_loop(
-        params, cfg, st, cache, logits[:, 1],
-        start_pos=p_len,
-        max_new_tokens=max_new_tokens,
-        use_timestamps=use_timestamps,
-        suppress_mask=suppress_mask,
-        space_blank_id=space_blank_id,
-        temperature=temperature,
-        rng_seed=rng_seed,
-        last_init=last_init,
-        penult_init=penult_init,
-        max_initial_ts_index=max_initial_ts_index,
-        **row_kw,
-    )
+    finally:
+        _release_session(sess)
     if group > 1:
-        return _rank_groups(tokens, lengths, sum_logprob, no_speech_prob, b0, group)
-    return DecodeResult(tokens, lengths, sum_logprob, no_speech_prob)
+        return _rank_groups(*res, b0, group)
+    return res
 
 
 def greedy_decode(

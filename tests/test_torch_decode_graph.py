@@ -1,9 +1,11 @@
-"""The greedy decode that the card replays as CUDA graphs, run eagerly on
-the CPU: its step of fixed shapes (a device position, an indexed cache
-write, self-attention over every slot with the later ones masked) against
-the decoder step the eager loop runs, and its loop, which reads the
-finished flags every ``READBACK_EVERY`` steps, against the same loop
-reading them every step and against ``greedy_decode``'s eager loop.
+"""The decode session, which runs every greedy and sampling decode (and
+which the card replays as CUDA graphs), run eagerly on the CPU: its step
+of fixed shapes (a device position, an indexed cache write,
+self-attention over every slot with the later ones masked) against the
+decoder step at an int position over the growing slice, its loop, which
+reads the finished flags every ``READBACK_EVERY`` steps, against the same
+loop reading them every step, and ``greedy_decode`` and
+``prompted_greedy_decode`` against a session built and run directly.
 
 A tiny seeded Whisper with the int4 kernel-layout cross cache (its plain
 version on the CPU), in float32 and bfloat16; the EOT row of the token
@@ -38,10 +40,12 @@ def states(dtype=torch.float32):
     return torch.randn(B, 96, 64, generator=torch.Generator().manual_seed(3)).to(dtype)
 
 
+HIST = [[5, 6, 7, 8]] + [[]] * 4 + [[9, 10]] + [[]] * 2  # rows 0 and 5 with a context
+
+
 def prompt_rows():
     """Left-padded prompts: rows 0 and 5 with a previous-text context."""
-    hist = [[5, 6, 7, 8]] + [[]] * 4 + [[9, 10]] + [[]] * 2
-    rows, lens = decode.build_prompt_rows(hist, SOT, ST, 4)
+    rows, lens = decode.build_prompt_rows(HIST, SOT, ST, 4)
     rows = torch.as_tensor(rows).long()
     return rows, rows.shape[1] - torch.as_tensor(lens).long()
 
@@ -94,7 +98,7 @@ def session_decode(params, dtype, readback_every, prompted=False):
     else:
         prompt, pad = torch.tensor(SOT)[None].repeat(B, 1), None
         last, penult = torch.full((B,), SOT[-1]), torch.full((B,), SOT[0])
-    sess = decode._GreedySession(
+    sess = decode._DecodeSession(
         params, CFG, B, 96, prompt.shape[1], MAX_NEW, dtype, quantize_cross_kv=True,
         kernel_layout=True, bits=4, quantize_self_kv=False, use_timestamps=True, suppress=False,
         prompted=prompted, mesh=None, device=torch.device("cpu"))
@@ -127,34 +131,27 @@ def test_readback_every_16_steps_is_bit_equal(dtype, eot_scale):
 
 
 @pytest.mark.parametrize("prompted", [False, True], ids=["sot", "prompted"])
-def test_session_decode_equals_the_eager_loop(prompted):
-    """At float32 the session's loop gives ``greedy_decode``'s and
-    ``prompted_greedy_decode``'s tokens and lengths, and their summed
-    logprobs within 1e-5."""
-    params = weights(2.0)
-    kw = dict(max_new_tokens=MAX_NEW, quantize_cross_kv=True, kv_bits=4)
-    if prompted:
-        hist = [[5, 6, 7, 8]] + [[]] * 4 + [[9, 10]] + [[]] * 2
-        rows, lens = decode.build_prompt_rows(hist, SOT, ST, 4)
-        want = decode.prompted_greedy_decode(params, CFG, states(), rows, lens,
-                                             sot_len=len(SOT), **kw)
-    else:
-        want = decode.greedy_decode(params, CFG, states(), sot_sequence=SOT, **kw)
-    got, _ = session_decode(params, torch.float32, 16, prompted)
-    assert torch.equal(got.tokens, want.tokens)
-    assert torch.equal(got.lengths, want.lengths)
-    assert (got.sum_logprob - want.sum_logprob).abs().max().item() <= 1e-5
-    assert (got.no_speech_prob - want.no_speech_prob).abs().max().item() <= 1e-6
-
-
-def test_cpu_decode_takes_the_eager_loop(monkeypatch):
-    """On the CPU no session is made: ``greedy_decode`` runs the eager
-    loop, which reads the finished flags every step."""
-    made = []
-    monkeypatch.setattr(decode, "_GreedySession", lambda *a, **k: made.append(1))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_runs_in_the_session(dtype, prompted):
+    """``greedy_decode`` and ``prompted_greedy_decode`` return what a
+    session built and run directly returns, bit for bit; nothing is
+    replayed on the CPU, and the finished flags are read every
+    ``READBACK_EVERY`` steps, so the steps run are a multiple of it or the
+    cap."""
+    params = weights(3.0, dtype)
+    kw = dict(max_new_tokens=MAX_NEW, quantize_cross_kv=True, kv_bits=4,
+              dtype_name=str(dtype).removeprefix("torch."))
     with trace.request() as rec:
-        res = decode.greedy_decode(weights(3.0), CFG, states(), sot_sequence=SOT,
-                                   max_new_tokens=MAX_NEW, quantize_cross_kv=True, kv_bits=4)
-    assert not made
-    assert rec.counters["decode.steps"] == int(res.lengths.max()) + 1
-    assert rec.spans["decode.wait"][2] == rec.counters["decode.steps"]
+        if prompted:
+            rows, lens = decode.build_prompt_rows(HIST, SOT, ST, 4)
+            got = decode.prompted_greedy_decode(params, CFG, states(dtype), rows, lens,
+                                                sot_len=len(SOT), **kw)
+        else:
+            got = decode.greedy_decode(params, CFG, states(dtype), sot_sequence=SOT, **kw)
+    want, _ = session_decode(params, dtype, decode.READBACK_EVERY, prompted)
+    for name in ("tokens", "lengths", "sum_logprob", "no_speech_prob"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert "decode.graph_steps" not in rec.counters
+    steps = rec.counters["decode.steps"]
+    assert steps % decode.READBACK_EVERY == 0 or steps == MAX_NEW
+    assert rec.spans["decode.wait"][2] == -(-steps // decode.READBACK_EVERY)

@@ -7,8 +7,9 @@ The replayed decode gives the same tokens and summed logprobs as the same
 session run eagerly, at B = 48 and B = 2; every kernel B launch still
 goes through its wrapper (4 a decoder forward, the prefill's included);
 ``decode.graph_steps`` counts the replayed steps, in a Transcriber's
-``result["trace"]`` too; and two threads decoding one shape at once each
-get the answer one decode alone gets.
+``result["trace"]`` too; two threads decoding one shape at once each get
+the answer one decode alone gets; and so does a decode that finds every
+kept session of its shape busy, which runs a session of its own eagerly.
 
 CUDA graphs and kernel B have no CPU mode, so every test here is marked
 ``cuda`` and skips without a card (the CPU half is
@@ -77,15 +78,13 @@ def greedy(params, states, suppress):
     return res, rec.counters
 
 
-def eager_session(params, states, suppress, monkeypatch):
+def eager_session(params, states, suppress):
     """A session with nothing captured: every step runs eagerly."""
     b, dev = states.shape[0], states.device
-    with monkeypatch.context() as m:
-        m.setattr(decode._GreedySession, "_capture", lambda self: None)
-        sess = decode._GreedySession(
-            params, CFG, b, CFG.n_audio_ctx, len(SOT), MAX_NEW, torch.bfloat16,
-            quantize_cross_kv=True, kernel_layout=True, bits=4, quantize_self_kv=False,
-            use_timestamps=True, suppress=True, prompted=False, mesh=None, device=dev)
+    sess = decode._DecodeSession(
+        params, CFG, b, CFG.n_audio_ctx, len(SOT), MAX_NEW, torch.bfloat16,
+        quantize_cross_kv=True, kernel_layout=True, bits=4, quantize_self_kv=False,
+        use_timestamps=True, suppress=True, prompted=False, mesh=None, device=dev)
     return sess.decode(params, states, torch.tensor(SOT, device=dev)[None].repeat(b, 1), None,
                        sot_len=len(SOT), last_init=torch.full((b,), SOT[-1], device=dev),
                        penult_init=torch.full((b,), SOT[0], device=dev), suppress_mask=suppress,
@@ -98,12 +97,12 @@ def same(a, b) -> bool:
 
 
 @pytest.mark.parametrize("b", [48, 2])
-def test_replayed_decode_equals_the_eager_session(dev, b, monkeypatch):
+def test_replayed_decode_equals_the_eager_session(dev, b):
     """The graphs replay the step the session runs eagerly: tokens,
     lengths and summed logprobs equal, the first decode (which captures)
     and the next alike."""
     params, states, suppress = params_on(dev), states_on(dev, b), suppress_on(dev)
-    want = eager_session(params, states, suppress, monkeypatch)
+    want = eager_session(params, states, suppress)
     first, c1 = greedy(params, states, suppress)
     again, c2 = greedy(params, states, suppress)
     assert c1["decode.graph_steps"] == c2["decode.graph_steps"] == MAX_NEW - 2
@@ -183,3 +182,26 @@ def test_two_threads_decoding_one_shape_get_the_lone_answer(dev):
         t.join(timeout=600)
     assert not any(t.is_alive() for t in threads) and not errors, errors
     assert same(got[0], alone) and same(got[1], alone)
+
+
+def test_a_decode_with_every_kept_session_busy_gets_the_lone_answer(dev, monkeypatch):
+    """With ``MAX_SESSIONS`` sessions of its shape held busy, a B = 48
+    decode runs a session made for it alone, eagerly (nothing replayed),
+    and returns what a lone decode, replayed, returns."""
+    params, states, suppress = params_on(dev), states_on(dev, 48), suppress_on(dev)
+    alone, c_alone = greedy(params, states, suppress)
+    acquire, held = decode._acquire_session, []
+
+    def hold_every_kept_session_then_acquire(key, make):
+        held.extend(acquire(key, make) for _ in range(decode.MAX_SESSIONS))
+        return acquire(key, make)
+
+    monkeypatch.setattr(decode, "_acquire_session", hold_every_kept_session_then_acquire)
+    try:
+        got, counters = greedy(params, states, suppress)
+    finally:
+        for sess in held:
+            decode._release_session(sess)
+    assert len({id(s) for s in held}) == decode.MAX_SESSIONS
+    assert c_alone["decode.graph_steps"] > 0 and "decode.graph_steps" not in counters
+    assert same(got, alone)

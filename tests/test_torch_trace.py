@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from audio_processor_tpu_torch.models.whisper import decode
 from audio_processor_tpu_torch.pipeline import meeting
 from audio_processor_tpu_torch.pipeline.transcribe import Transcriber
 from audio_processor_tpu_torch.runtime import services, trace
@@ -250,10 +251,10 @@ def _audio(seconds: float, seed: int = 0) -> np.ndarray:
     return (x + rng.normal(0, 0.01, t.size)).astype(np.float32)
 
 
-def _steps_run(results) -> int:
-    """What a decode loop runs: until every row has emitted EOT, or to the
-    cap (the benchmark's probe counts the same)."""
-    return sum(min(cap, int(r.lengths.max()) + 1) for r, cap in results)
+def _steps_run(results, every: int) -> int:
+    """What a decode loop runs: until a read of the finished flags (one
+    every ``every`` steps) finds every row has emitted EOT, or to the cap."""
+    return sum(min(cap, -(-(int(r.lengths.max()) + 1) // every) * every) for r, cap in results)
 
 
 @pytest.mark.parametrize("kw", [dict(max_new_tokens=12),
@@ -274,7 +275,8 @@ def test_transcriber_trace_counts_the_decode_steps(kw):
     t = out["trace"]
     spans, counters = t["spans"], t["counters"]
     steps = counters["decode.steps"]
-    assert steps == spans["decode.step"]["count"] == _steps_run(decodes) > 0
+    every = 1 if "beam_size" in kw else decode.READBACK_EVERY  # beam search reads each step
+    assert steps == spans["decode.step"]["count"] == _steps_run(decodes, every) > 0
     assert counters["transcribe.windows"] == 3 and counters["decode.rows"] == 4
     assert spans["decode.wait"]["count"] <= steps
     assert spans["decode.wait"]["total_s"] <= spans["decode.step"]["total_s"]

@@ -38,6 +38,23 @@ class LocalLLMClient:
     # meetings a call of the engine at most: 16 hour-long transcripts hold
     # about 7 GB of latent cache
     max_meetings = 16
+    # bytes the engine holds on the card above its weights at its largest
+    # call: a backlog of 16 meetings of 30-60 min peaked at 43.04 GB with
+    # 31.41 GB of bf16 weights on an H100 80GB (the latent caches, the
+    # prefill's chunks, the kept prefix buffers and the graphs' pools)
+    work_bytes = 12 * 10**9
+
+    @classmethod
+    def card_bytes(cls, name: str = "deepseek-v2-lite") -> int:
+        """The peak the engine of preset ``name`` takes on the card: its
+        bf16 weights and ``work_bytes``."""
+        import math
+
+        from ..models.llm.checkpoint import param_spec
+        from ..models.llm.config import get_config
+
+        n = sum(math.prod(shape) for _, shape, _, _ in param_spec(get_config(name)))
+        return 2 * n + cls.work_bytes
 
     def __init__(self, engine, tokenizer=None):
         from ..models.llm.tokenizer import ByteTokenizer

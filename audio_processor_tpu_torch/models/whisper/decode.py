@@ -256,8 +256,14 @@ def precompute_cross_attn(
     H the heads of this model rank."""
     blocks = params["decoder"]["blocks"]
     h = local_heads(cfg.n_text_head, mesh)
-    kv = [_cross_kv(layer(blocks, l), h, audio_states) for l in range(cfg.n_text_layer)]
-    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+    ck = cv = None
+    for l in range(cfg.n_text_layer):  # filled a layer at a time: one copy live
+        k, v = _cross_kv(layer(blocks, l), h, audio_states)
+        if ck is None:
+            ck = k.new_empty((cfg.n_text_layer,) + k.shape)
+            cv = v.new_empty((cfg.n_text_layer,) + v.shape)
+        ck[l], cv[l] = k, v
+    return ck, cv
 
 
 def _quantize_kv(x: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1408,19 +1414,25 @@ def beam_decode(
 # Language detection (openai-whisper's detect_language equivalent)
 # ---------------------------------------------------------------------------
 
+# Rows a language detection runs at once: each holds a float32 cross cache of
+# every decoder layer (295 MB a row at medium's widths, 491 at large-v3's).
+DETECT_ROWS = 8
+
+
 def detect_language(
     params: Params, cfg: WhisperConfig, audio_states: torch.Tensor, mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decoder step on <|sot|> over an UNQUANTIZED float32 cache;
-    returns (lang_index (B,), probs (B, n_lang)), the index relative to
-    SpecialTokens.lang_begin."""
+    """One decoder step on <|sot|> over an UNQUANTIZED float32 cache,
+    ``DETECT_ROWS`` rows at a time; returns (lang_index (B,), probs
+    (B, n_lang)), the index relative to SpecialTokens.lang_begin."""
     st = SpecialTokens.for_config(cfg)
-    b = audio_states.shape[0]
-    cache = init_cache(params, cfg, audio_states, max_len=1, mesh=mesh)
-    sot = torch.full((b, 1), st.sot, dtype=torch.long, device=audio_states.device)
-    logits, _ = decoder_forward_cached(params, cfg, sot, cache, 0, mesh=mesh)
-    lang_logits = logits[:, 0, st.lang_begin : st.lang_begin + st.num_languages]
-    probs = torch.softmax(lang_logits, dim=-1)
+    parts = []
+    for states in audio_states.split(DETECT_ROWS):
+        cache = init_cache(params, cfg, states, max_len=1, mesh=mesh)
+        sot = torch.full((states.shape[0], 1), st.sot, dtype=torch.long, device=states.device)
+        logits, _ = decoder_forward_cached(params, cfg, sot, cache, 0, mesh=mesh)
+        parts.append(logits[:, 0, st.lang_begin : st.lang_begin + st.num_languages])
+    probs = torch.softmax(torch.cat(parts), dim=-1)
     return probs.argmax(dim=-1), probs
 
 

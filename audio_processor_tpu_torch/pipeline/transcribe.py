@@ -24,8 +24,9 @@ tracer (``runtime/trace.py``) whose summary the result carries as
 "trace": the spans ``transcribe.ingest``, ``.trim``, ``.slab_cut``,
 ``.encode``, ``.language``, ``.decode``, ``.collect``, ``.seek_repair`` and
 ``.segments`` under ``transcribe``, the decode loops' spans, and the
-counters ``transcribe.windows`` (real windows) and ``decode.rows`` (slab
-rows, padding included).
+counters ``transcribe.windows`` (real windows), ``transcribe.slabs`` (grid
+slabs, cut by ``slab_plan``) and ``decode.rows`` (slab rows, padding
+included).
 
 Under a (data, model) mesh (``parallel/mesh.py``; one process per rank)
 every rank holds its shard of the parameters (``parallel/sharding.py``)
@@ -173,6 +174,96 @@ def _bucket(n: int, max_bucket: int = 64) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+def slab_rows(n: int) -> int:
+    """Rows of a slab of n windows: the next power of two below 8, the next
+    multiple of 8 from 8 on.  The decode keeps a captured session per row
+    count (``decode.MAX_SESSIONS``), so the slabs take few shapes."""
+    return 1 << max(0, n - 1).bit_length() if n <= 8 else -(-n // 8) * 8
+
+
+def slab_plan(n: int, cap: int, multiple: int = 1) -> list[tuple[int, int, int]]:
+    """How n windows are cut into slabs of at most ``cap`` rows, each rounded
+    up to a multiple of ``multiple`` (the data axis): (first window, windows,
+    rows) of each slab.  ceil(n / cap) slabs share the windows about evenly;
+    every slab but the last is all windows, and the last has the rows of its
+    own windows."""
+    def up(x):
+        return -(-x // multiple) * multiple
+
+    cap = up(cap)
+    k = max(1, -(-n // cap))
+    stride = up(min(slab_rows(-(-n // k)), cap))
+    return [(lo, min(stride, n - lo), up(min(slab_rows(min(stride, n - lo)), cap)))
+            for lo in range(0, n, stride)]
+
+
+# The most rows a slab takes: a bound on how long a slab's first streamed
+# segment waits, and the cap wherever no card sizes it (the CPU).
+SLAB_ROWS = 128
+# The card's share that no slab may take: the CUDA context, the caching
+# allocator's fragmentation and the Diarizer's passes.
+CARD_HEADROOM = 0.1
+MLP_RATIO = 4  # Whisper's MLP hidden over its width
+# The windows ``Transcriber.warmup`` transcribes by default: a 30 min
+# recording, the meeting service's own, so its slabs' shapes are warm.
+WARMUP_WINDOWS = 60
+
+
+def row_bytes(cfg: WhisperConfig, compute_dtype: str, quantize_cross_kv: bool = True,
+              cross_kv_bits: int = 4, quantize_self_kv: bool = False) -> tuple[int, int]:
+    """(kept, passing): the bytes of one slab row on the card that a kept
+    decode session holds between decodes, and those the row's decode holds
+    only while it runs, from the widths.
+
+    Kept: the cross cache (int4 nibble-packed over 128-padded time, int8, or
+    unquantized), the self cache over the whole text context, and four
+    float32 rows of logits (logits, masked, log-softmax, sampled) in the
+    graphs' pool.  Passing: the encoder states, and the larger of the
+    encoder's transient (at T = 1500: the residual, its layer norm, the MLP
+    hidden and its GELU) and the cross cache's build (one layer's K and V,
+    then in float32 for the quantization).  At turbo's widths (bf16, int4)
+    that is 7.9 + 9.2 + 0.8 = 17.9 MB kept and 3.8 + max(38.4, 23.0) =
+    42.2 MB passing.  Checked on an H100 80GB, one decode of 16 and of 48
+    rows: a row kept 11.5, 59.3 and 100.6 MB after the decode and took 48.2,
+    59.0 and 81.8 MB at its peak for turbo, medium and large-v3, under the
+    60.1, 116.4 and 179.4 MB here (an unprompted decode fills half the self
+    cache)."""
+    eb = torch.finfo(getattr(torch, compute_dtype)).bits // 8
+    t, da, dt, n_layer = cfg.n_audio_ctx, cfg.n_audio_state, cfg.n_text_state, cfg.n_text_layer
+    tpad = t + (-t) % 128
+    if not quantize_cross_kv:
+        cross = build = n_layer * 2 * t * dt * eb
+    else:
+        cross = n_layer * 2 * dt * (tpad // 2 if cross_kv_bits == 4 else tpad)
+        build = 2 * t * dt * (eb + 4)
+    self_cache = n_layer * 2 * cfg.n_text_ctx * dt * (1 if quantize_self_kv else eb)
+    kept = cross + self_cache + 4 * cfg.n_vocab * 4
+    encode = t * (2 + 2 * MLP_RATIO) * da * eb
+    return kept, t * da * eb + max(encode, build)
+
+
+def detect_bytes(cfg: WhisperConfig) -> int:
+    """Bytes a language detection holds on the card at once: the float32
+    states and cross cache of every decoder layer for ``DETECT_ROWS`` rows
+    (``decode.detect_language``).  On an H100 80GB a 16-row decode peaked
+    4.82 and 7.99 GB over medium's and large-v3's weights with that cache
+    stacked from a list of layers (twice this), 2.70 and 4.31 GB with it
+    filled a layer at a time."""
+    t, da, dt = cfg.n_audio_ctx, cfg.n_audio_state, cfg.n_text_state
+    return decode_lib.DETECT_ROWS * (cfg.n_text_layer * 2 * t * dt + t * da) * 4
+
+
+def card_slab_cap(total_bytes: int, fixed_bytes: int, row: int, dp: int = 1) -> int:
+    """Windows a slab on cards of ``total_bytes`` each: what is left past
+    ``CARD_HEADROOM`` and ``fixed_bytes`` (a card's weights, buffers and
+    co-resident models) at ``row`` bytes a window on each of ``dp`` data
+    ranks, at most ``SLAB_ROWS``, rounded down to a row count of
+    ``slab_rows``."""
+    fit = int((total_bytes * (1 - CARD_HEADROOM) - fixed_bytes) // row) * dp
+    cap = max(1, min(SLAB_ROWS, fit))
+    return cap // 8 * 8 if cap >= 8 else 1 << (cap.bit_length() - 1)
+
+
 @dataclass
 class Transcriber:
     """Holds params for one Whisper variant on one device.
@@ -216,7 +307,9 @@ class Transcriber:
     no_speech_threshold: float | None = 0.6
     # openai's suppress_tokens: None or [-1] = the default non-speech set
     suppress_tokens: list[int] | None = None
-    # windows per slab: None = 128, or 48 for >= 1024-d models
+    # windows per slab: None = sized from the card's memory for one decode
+    # at a time (``card_slab_cap``; ``build_services`` sizes it for its
+    # service), 128 on the CPU
     max_chunk_batch: int | None = None
     task: str = "transcribe"
     auto_language: bool = True
@@ -302,8 +395,6 @@ class Transcriber:
                 f"language index {self.language} is out of range for this "
                 f"model's {self.special.num_languages}-language vocabulary"
             )
-        if self.max_chunk_batch is None:
-            self.max_chunk_batch = 48 if self.cfg.n_audio_state >= 1024 else 128
         wd = self.weights_dtype
         if wd == "auto":
             wd = None if self.compute_dtype == "float32" else self.compute_dtype
@@ -340,6 +431,8 @@ class Transcriber:
                     self.cfg.n_text_head, tp,
                 )
                 self.cross_kv_bits = 8
+        if self.max_chunk_batch is None:
+            self.max_chunk_batch = self.card_slab_cap() or SLAB_ROWS
         # per-call detected language, thread-local: a server may share one
         # Transcriber across job threads
         self._lang_tls = threading.local()
@@ -461,6 +554,35 @@ class Transcriber:
 
     # -- helpers ---------------------------------------------------------------
 
+    def weight_bytes(self) -> int:
+        """Bytes of this process's parameters, as cast (a rank's shard)."""
+        sizes = []
+        model_lib.map_params(lambda t: sizes.append(t.numel() * t.element_size()), self.params)
+        return sum(sizes)
+
+    def card_slab_cap(self, decodes: int = 1, reserved_bytes: int = 0) -> int | None:
+        """``card_slab_cap`` for this Transcriber on its card (each rank's,
+        on a mesh), with ``decodes`` decodes running at once and
+        ``reserved_bytes`` held by whatever else shares the card: from the
+        card's total memory (never its momentary free memory, which would
+        make a window's rows depend on what else runs), the weights as cast,
+        ``max(decode.MAX_SESSIONS, decodes)`` kept sessions (each with a
+        float32 copy of the unembedding and its rows' kept bytes), each
+        decode's passing bytes and ``detect_bytes``, and a window's rows: its
+        beams under beam search.  None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        kept, passing = row_bytes(
+            self.cfg, self.compute_dtype, self.quantize_cross_kv, self.cross_kv_bits,
+            self.quantize_self_kv,
+        )
+        beams = self.beam_size if self.beam_size > 0 and self.temperature == 0 else 1
+        sessions = max(decode_lib.MAX_SESSIONS, decodes)
+        fixed = (self.weight_bytes() + reserved_bytes + decodes * detect_bytes(self.cfg)
+                 + sessions * self.cfg.n_vocab * self.cfg.n_text_state * 4)
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        return card_slab_cap(total, fixed, beams * (sessions * kept + decodes * passing), self._dp)
+
     @property
     def _slab_cap(self) -> int:
         """Slab cap: a base temperature > 0 expands every decode best_of-fold."""
@@ -511,6 +633,11 @@ class Transcriber:
     @property
     def _dp(self) -> int:
         return 1 if self.mesh is None else self.mesh.dp
+
+    def _slab_plan(self, n: int, cap: int | None = None) -> list[tuple[int, int, int]]:
+        """``slab_plan`` of n windows at ``cap`` (default the slab cap),
+        rounded to the data axis."""
+        return slab_plan(n, self._slab_cap if cap is None else cap, self._dp)
 
     def _round(self, n: int) -> int:
         """A slab size rounded up to a multiple of the data axis."""
@@ -564,11 +691,12 @@ class Transcriber:
         return self._chunk_slab_pairs([audio], [(0, ci) for ci in chunk_ids], bucket)
 
     def warmup(self, n_chunks: int | None = None) -> float:
-        """Transcribe n_chunks windows of a low tone (default: one slab) so
-        the kernels are built and loaded before the first request.
+        """Transcribe n_chunks windows of a low tone (default
+        ``WARMUP_WINDOWS``) so the kernels are built and loaded, and the
+        decode sessions of its slabs captured, before the first request.
         Returns the wall seconds spent."""
         if n_chunks is None:
-            n_chunks = self._slab_cap
+            n_chunks = WARMUP_WINDOWS
         t0 = time.monotonic()
         t = np.arange(n_chunks * CHUNK_SAMPLES, dtype=np.float32) / 16_000
         audio = (0.1 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
@@ -740,8 +868,8 @@ class Transcriber:
     def _quality_retry(self, result, tokens, n_real, states, meta, redecode, label) -> None:
         """Compacted temperature-ladder retries (openai's
         decode_with_fallback), the one loop of the plain and the conditioned
-        paths: only the failed rows re-decode, padded to a power-of-two
-        bucket (rounded to the data axis), through
+        paths: only the failed rows re-decode, in the slabs of
+        ``slab_plan`` at the retry cap, through
         ``redecode(sub_states, part, temp, lo)``; ``tokens``
         and ``meta`` update in place.  Beam rows retry by sampling, as
         openai's ladder does."""
@@ -750,14 +878,12 @@ class Transcriber:
             if not failed.any():
                 break
             idx = np.flatnonzero(failed)
-            retry_cap = self._retry_cap
             logger.info(
                 "%s: %d/%d chunks re-decoding at T=%.1f", label, len(idx), n_real, temp,
             )
             failed[:] = False
-            for lo in range(0, len(idx), retry_cap):
-                part = idx[lo : lo + retry_cap]
-                bucket = self._round(min(_bucket(len(part)), retry_cap))
+            for lo, real, bucket in self._slab_plan(len(idx), self._retry_cap):
+                part = idx[lo : lo + real]
                 pad_idx = np.zeros(bucket, np.int64)
                 pad_idx[: len(part)] = part
                 sub_states = self._take_rows(states, pad_idx)
@@ -803,10 +929,8 @@ class Transcriber:
         patch_rows: list[np.ndarray] = []
         patch_metas: list[dict] = []
         patch_states: list[torch.Tensor] = []
-        cap = self._slab_cap
-        for lo in range(0, len(bounds), cap):
-            batch = bounds[lo : lo + cap]
-            bucket = self._round(min(_bucket(len(batch)), cap))
+        for lo, real, bucket in self._slab_plan(len(bounds)):
+            batch = bounds[lo : lo + real]
             arr = np.zeros((bucket, CHUNK_SAMPLES), np.int16)
             for j, (i, c) in enumerate(batch):
                 s0 = i * CHUNK_SAMPLES + int(round(c * 16_000))
@@ -942,7 +1066,7 @@ class Transcriber:
     # -- conditioned (window-group) decoding --------------------------------------
 
     def _transcribe_conditioned(
-        self, audio: np.ndarray, n_chunks: int, progress=None, on_segment=None,
+        self, audio: np.ndarray, n_chunks: int, plan, progress=None, on_segment=None,
         time_map=None,
     ) -> tuple[np.ndarray, dict]:
         """Window-group conditioned decode (condition_on_previous_text).
@@ -953,8 +1077,8 @@ class Transcriber:
         search and with the retry ladder, whose rungs keep the prompt up to
         T=0.5 and drop it above (openai's prompt_reset_on_temperature).
         Returns (tokens (n_chunks, max_new_tokens), the encoder states in
-        slabs of chunk order when word_timestamps needs them (this data
-        rank's rows of each, ``_job_states``), per-window meta)."""
+        the slabs of ``plan`` (the grid's) when word_timestamps needs them
+        (this data rank's rows of each, ``_job_states``), per-window meta)."""
         g_size = max(1, self.condition_group_size)
         n_groups = math.ceil(n_chunks / g_size)
         token_rows = np.full((n_chunks, self.max_new_tokens), self.special.eot, np.int32)
@@ -981,9 +1105,9 @@ class Transcriber:
             chunk_ids = [g * g_size + r for g in range(n_groups) if g * g_size + r < n_chunks]
             if not chunk_ids:
                 break
-            bucket = self._round(min(_bucket(len(chunk_ids)), self._slab_cap))
-            for lo in range(0, len(chunk_ids), bucket):
-                ids = chunk_ids[lo : lo + bucket]
+            for lo, real, bucket in self._slab_plan(len(chunk_ids)):
+                ids = chunk_ids[lo : lo + real]
+                trace.count("transcribe.slabs")
                 states = self._frontend_encode(self._chunk_slab(audio, ids, bucket))
                 if (
                     r == 0 and lo == 0 and self.auto_language and self.language is None
@@ -1054,9 +1178,8 @@ class Transcriber:
             order = np.argsort(np.concatenate([np.asarray(ids) for ids, _ in kept_states]))
             all_states = torch.cat([st for _, st in kept_states])
             all_states = all_states[torch.from_numpy(order).to(all_states.device)]
-            slab = self._round(min(_bucket(n_chunks), self._slab_cap))
-            states_per_slab = [self._job_states(all_states[lo : lo + slab])
-                               for lo in range(0, n_chunks, slab)]
+            states_per_slab = [self._job_states(all_states[lo : lo + real])
+                               for lo, real, _ in plan]
         return token_rows, states_per_slab, chunk_meta
 
     # -- main entry --------------------------------------------------------------
@@ -1145,27 +1268,25 @@ class Transcriber:
                     time_map = TimeMap.identity(duration_s)
 
         n_chunks = max(1, math.ceil(len(audio) / CHUNK_SAMPLES))
-        slab = self._round(min(_bucket(n_chunks), self._slab_cap))
+        plan = self._slab_plan(n_chunks)
         if self.condition_on_previous_text:
             tokens, cond_states, chunk_meta = self._transcribe_conditioned(
-                audio, n_chunks, progress, on_segment=on_segment, time_map=time_map,
+                audio, n_chunks, plan, progress, on_segment=on_segment, time_map=time_map,
             )
             with trace.span("transcribe.seek_repair"):
                 tokens, patches = self._apply_seek_repair(tokens, n_chunks, audio)
             with trace.span("transcribe.segments"):
                 return self._finalize(
                     tokens, n_chunks, duration_s, time_map, t0, progress,
-                    states_per_slab=cond_states, slab=slab, audio=audio, patches=patches,
+                    states_per_slab=cond_states, plan=plan, audio=audio, patches=patches,
                     chunk_meta=chunk_meta,
                 )
-        n_slabs = math.ceil(n_chunks / slab)
         content_s = len(audio) / 16_000.0
         token_rows: list[np.ndarray] = []
         meta_rows: list[dict] = []
         states_per_slab: list[torch.Tensor] = []  # kept only for word alignment
-        for si in range(n_slabs):
-            lo = si * slab
-            real = min(slab, n_chunks - lo)
+        for si, (lo, real, slab) in enumerate(plan):
+            trace.count("transcribe.slabs")
             audio_states = self._frontend_encode(
                 self._chunk_slab(audio, list(range(lo, lo + real)), slab)
             )
@@ -1193,7 +1314,7 @@ class Transcriber:
                     content_s, time_map,
                 )
             if progress:
-                progress(0.1 + 0.8 * (si + 1) / n_slabs)
+                progress(0.1 + 0.8 * (si + 1) / len(plan))
 
         tokens = np.concatenate(token_rows, axis=0)
         chunk_meta = {k: np.concatenate([m[k] for m in meta_rows]) for k in meta_rows[0]}
@@ -1202,12 +1323,12 @@ class Transcriber:
         with trace.span("transcribe.segments"):
             return self._finalize(
                 tokens, n_chunks, duration_s, time_map, t0, progress,
-                states_per_slab=states_per_slab, slab=slab, audio=audio, patches=patches,
+                states_per_slab=states_per_slab, plan=plan, audio=audio, patches=patches,
                 chunk_meta=chunk_meta,
             )
 
-    def _word_pass(self, states_per_slab, slab, tokens, n_chunks, offsets, durations,
-                   patches, time_map) -> list[dict]:
+    def _word_pass(self, states_per_slab, plan, tokens, offsets, durations, patches,
+                   time_map) -> list[dict]:
         """Words of every grid window (its slab's states) and seek-repair
         patch, on the original timeline, sorted by time.  The teacher-forced
         rows carry the decode's sot sequence, and each window's map is
@@ -1229,8 +1350,8 @@ class Transcriber:
         )
         # (states, token rows, offsets, durations) of each slab, then the patches
         jobs = []
-        for si, states in enumerate(states_per_slab):
-            rows = slice(si * slab, min((si + 1) * slab, n_chunks))
+        for states, (lo, real, _) in zip(states_per_slab, plan):
+            rows = slice(lo, lo + real)
             jobs.append((states, tokens[rows], offsets[rows], durations[rows]))
         if patches is not None and "states" in patches:
             jobs.append(tuple(patches[k] for k in ("states", "tokens", "offsets", "durations")))
@@ -1257,7 +1378,7 @@ class Transcriber:
 
     def _finalize(
         self, tokens, n_chunks, duration_s, time_map, t0, progress,
-        *, audio, states_per_slab=(), slab=1, patches=None, chunk_meta=None,
+        *, audio, states_per_slab=(), plan=(), patches=None, chunk_meta=None,
     ) -> dict:
         """Shared tail: tokens -> segments -> (words) -> result dict."""
         offsets = np.arange(n_chunks, dtype=np.float64) * 30.0
@@ -1296,8 +1417,8 @@ class Transcriber:
             seg["end"] = round(time_map.to_original(seg["end"]), 3)
         words = None
         if self.word_timestamps:
-            words = self._word_pass(states_per_slab, slab, tokens, n_chunks, offsets,
-                                    durations, patches, time_map)
+            words = self._word_pass(states_per_slab, plan, tokens, offsets, durations,
+                                    patches, time_map)
             if self.hallucination_silence_threshold is not None:
                 segments, words = filter_hallucinations(
                     segments, words, self.hallucination_silence_threshold, duration_s,
@@ -1354,16 +1475,13 @@ class Transcriber:
             spans: list[tuple[int, int]] = []  # (first row, k) per file
             for fi, n in enumerate(n_chunks_per):
                 # the single-file path votes over its first decode slab
-                slab_f = self._round(min(_bucket(n), self._slab_cap))
-                k = self._voting_k(min(n, slab_f))
+                k = self._voting_k(self._slab_plan(n)[0][1])
                 spans.append((len(rows), k))
                 rows += [(fi, ci) for ci in range(k)]
-            cap = self._slab_cap
             prob_parts: list[np.ndarray] = []
             state_bank: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
-            for lo in range(0, len(rows), cap):
-                part = rows[lo : lo + cap]
-                bucket = self._round(min(_bucket(len(part)), cap))
+            for lo, real, bucket in self._slab_plan(len(rows)):
+                part = rows[lo : lo + real]
                 padded = part + [part[-1]] * (bucket - len(part))
                 states = self._frontend_encode(self._chunk_slab_pairs(audios, padded, bucket))
                 _, probs = decode_lib.detect_language(self.params, self.cfg, states, mesh=self.mesh)
@@ -1502,9 +1620,9 @@ class Transcriber:
         kept_slab_states: list[tuple[torch.Tensor, list[tuple[int, int]]]] = []
         for lang, pairs in pairs_by_lang.items():
             self._active_language = lang
-            slab = self._round(min(_bucket(len(pairs)), self._slab_cap))
-            for lo in range(0, len(pairs), slab):
-                batch_pairs = pairs[lo : lo + slab]
+            for lo, real, slab in self._slab_plan(len(pairs)):
+                batch_pairs = pairs[lo : lo + real]
+                trace.count("transcribe.slabs")
                 if state_bank and all(p in state_bank for p in batch_pairs):
                     # every row was encoded by the detection pass
                     audio_states = self._gather_state_rows(state_bank, batch_pairs, slab)
@@ -1561,7 +1679,8 @@ class Transcriber:
             with trace.span("transcribe.segments"):
                 results.append(self._finalize(
                     tokens, n_chunks_per[fi], durations_s[fi], time_maps[fi], t0, None,
-                    states_per_slab=states_per_slab, slab=max(1, n_chunks_per[fi]),
+                    states_per_slab=states_per_slab,
+                    plan=[(0, n_chunks_per[fi], n_chunks_per[fi])],
                     audio=trimmed[fi], patches=patches, chunk_meta=meta_by_file[fi],
                 ))
         return results

@@ -105,6 +105,17 @@ class Services:
             self.oauth_drives.pop(user_id, None)
 
 
+def size_slabs(transcribers: list, decodes: int, reserved_bytes: int = 0) -> None:
+    """Cap each Transcriber's slabs on its card (``card_slab_cap``) for
+    ``decodes`` decodes at once, beside the others' weights and
+    ``reserved_bytes`` more; on the CPU the caps stay."""
+    weights = [t.weight_bytes() for t in transcribers]
+    for t, w in zip(transcribers, weights):
+        cap = t.card_slab_cap(decodes, reserved_bytes + sum(weights) - w)
+        if cap is not None:
+            t.max_chunk_batch = cap
+
+
 def build_services(
     model: str = "tiny",
     store_url: str | None = None,
@@ -235,10 +246,26 @@ def build_services(
     elif fb_model:
         fallback = Transcriber.random_init(fb_model, device=device, mesh=mesh, **tkw)
 
+    # The slabs are sized for the decodes that can run at once on the card:
+    # the /v1 decode slots and the job engine's workers (a job's decode
+    # takes no slot), beside the other Transcriber's weights and a local
+    # language model's peak.  On a mesh every rank sizes them alike.
+    from ..server.openai_api import decode_slots
+
+    reserved = 0
+    llm = os.environ.get("APTPU_LOCAL_LLM") if with_llm else None
+    if llm:
+        from ..integrations.local_llm import LocalLLMClient
+
+        reserved = LocalLLMClient.card_bytes(llm)
+    size_slabs([t for t in (transcriber, fallback) if t is not None],
+               decode_slots() + max_workers, reserved)
+
     # APTPU_WARMUP=<n_chunks>: build and load the kernels and run one decode
     # at startup instead of on the first request's thread.  The value is
-    # the number of 30 s windows to warm (1 = one slab); 0/unset = off.  On
-    # a mesh every rank runs it here, together.
+    # the number of 30 s windows to warm (1 = a 30 min recording,
+    # ``WARMUP_WINDOWS``); 0/unset = off.  On a mesh every rank runs it
+    # here, together.
     warmup_raw = os.environ.get("APTPU_WARMUP", "0")
     if warmup_raw not in ("", "0"):
         transcriber.warmup(None if warmup_raw == "1" else int(warmup_raw))

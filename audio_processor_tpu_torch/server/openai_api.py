@@ -71,8 +71,13 @@ def _release_stream_slot() -> None:
         _stream_slots["active"] -= 1
 
 
+def decode_slots() -> int:
+    """APTPU_MAX_CONCURRENT_DECODES: the /v1 decodes that run at once."""
+    return int(os.environ.get("APTPU_MAX_CONCURRENT_DECODES", "2"))
+
+
 def _acquire_decode_slot() -> bool:
-    limit = int(os.environ.get("APTPU_MAX_CONCURRENT_DECODES", "2"))
+    limit = decode_slots()
     timeout_s = float(os.environ.get("APTPU_DECODE_QUEUE_TIMEOUT_S", "60"))
     deadline = time.monotonic() + timeout_s
     with trace.span("v1.slot_wait"), _decode_cond:

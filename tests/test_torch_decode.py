@@ -187,6 +187,21 @@ def test_detect_language_equal_jax():
     np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), atol=1e-5)
 
 
+def test_detect_language_in_passes_equal_jax():
+    """11 rows run as passes of ``DETECT_ROWS`` (8 and 3) and give JAX's one
+    pass over all 11."""
+    dims = dict(DIMS, n_vocab=51865, n_audio_ctx=32)
+    cfg, jcfg = WhisperConfig(name="ml", **dims), JConfig(name="ml", **dims)
+    jparams = jax_tree_from_seed(cfg, 9)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    st = np.random.default_rng(11).normal(0, 1, (11, 32, 64)).astype(np.float32)
+    assert decode.DETECT_ROWS < 11
+    idx, probs = decode.detect_language(params, cfg, torch.from_numpy(st))
+    jidx, jprobs = jdecode.detect_language(jparams, jcfg, jnp.asarray(st))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), atol=1e-5)
+
+
 ROWS = np.full((6, 12), ST.eot, np.int64)
 ROWS[0, :8] = [TB, 5, 6, TB + 50, TB + 50, 7, 8, TB + 100]          # two closed
 ROWS[1, :7] = [TB, 5, 6, TB + 50, TB + 60, 7, 8]                    # trailing text

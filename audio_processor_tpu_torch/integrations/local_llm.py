@@ -1,4 +1,5 @@
-"""The meeting job's language-model tasks on the card, with DeepSeek-V2.
+"""The meeting job's language-model tasks on the card, with DeepSeek-V2
+or Kimi-Linear (``APTPU_LOCAL_LLM`` names the preset).
 
 ``LocalLLMClient`` does ``GeminiClient``'s tasks with its instructions and
 graceful defaults (identity speaker map, "Meeting Notes" / "Summary
@@ -6,11 +7,16 @@ generation failed.", empty notes), for teams whose transcripts may not
 leave their machines: speaker identification, and the summary (title and
 action items) with the meeting notes.  Each task takes a batch of
 meetings (the job's ``MeetingProcessor.write_up`` hands it one meeting, a
-backlog job all of them) and runs it as one call of the engine, of at
-most ``max_meetings`` meetings.  Prompts follow DeepSeek-V2-Chat's layout
-(``<BOS>User: ...\\n\\nAssistant:``) and put the transcript first, so the
-summary and the notes decode as two rows of one prefilled transcript
-(``models/llm/generate.py``).
+backlog job all of them) and runs it as calls of the engine of at most
+the preset's ``max_meetings`` meetings each.  Prompts follow DeepSeek-V2-Chat's layout
+(``<BOS>User: ...\\n\\nAssistant:``, with the model's own BOS) and put the
+transcript first, so the summary and the notes decode as two rows of one
+prefilled transcript (``models/llm/generate.py``).
+
+Kimi-Linear-48B-A3B is published as a model for two cards in expert
+parallelism: one card holds half of each layer's 256 experts (the preset
+holds experts 0-127) and, without a mesh whose model group holds the
+other half, computes only that half (the engine warns when it loads).
 
 Decoding is greedy, to at most ``speaker_tokens``, ``summary_tokens`` and
 ``notes_tokens`` new tokens.  Without published weights and tokenizer in
@@ -29,38 +35,36 @@ logger = logging.getLogger(__name__)
 
 
 class LocalLLMClient:
-    """Greedy DeepSeek-V2 on one device, behind the Gemini client's tasks."""
+    """Greedy DeepSeek-V2 or Kimi-Linear on one device, behind the Gemini
+    client's tasks."""
 
     available = True
     # new-token caps: a JSON map of up to six names; a title, 200-300 words
     # and action items; notes with headings and action items
     speaker_tokens, summary_tokens, notes_tokens = 96, 512, 1024
-    # meetings a call of the engine at most: 16 hour-long transcripts hold
-    # about 7 GB of latent cache
-    max_meetings = 16
-    # bytes the engine holds on the card above its weights at its largest
-    # call: a backlog of 16 meetings of 30-60 min peaked at 43.04 GB with
-    # 31.41 GB of bf16 weights on an H100 80GB (the latent caches, the
-    # prefill's chunks, the kept prefix buffers and the graphs' pools)
-    work_bytes = 12 * 10**9
 
     @classmethod
     def card_bytes(cls, name: str = "deepseek-v2-lite") -> int:
         """The peak the engine of preset ``name`` takes on the card: its
-        bf16 weights and ``work_bytes``."""
+        bf16 weights (this card's experts) and the preset's ``work_bytes``
+        (the latent caches and KDA states, the prefill's chunks, the kept
+        prefix buffers and the graphs' pools at its largest call)."""
         import math
 
         from ..models.llm.checkpoint import param_spec
         from ..models.llm.config import get_config
 
-        n = sum(math.prod(shape) for _, shape, _, _ in param_spec(get_config(name)))
-        return 2 * n + cls.work_bytes
+        cfg = get_config(name)
+        n = sum(math.prod(shape) for _, shape, _, _ in param_spec(cfg))
+        return 2 * n + cfg.work_bytes
 
     def __init__(self, engine, tokenizer=None):
         from ..models.llm.tokenizer import ByteTokenizer
 
         self.engine = engine
         self.tokenizer = tokenizer or ByteTokenizer()
+        # meetings a call of the engine at most: the preset's measured call
+        self.max_meetings = engine.cfg.max_meetings
 
     @classmethod
     def random_init(cls, name: str = "deepseek-v2-lite", device=None) -> "LocalLLMClient":
@@ -81,7 +85,7 @@ class LocalLLMClient:
     # -- prompts ---------------------------------------------------------
 
     def prompt(self, content: str) -> list[int]:
-        """DeepSeek-V2-Chat's single-turn layout."""
+        """DeepSeek-V2-Chat's single-turn layout, after the model's BOS."""
         return [self.engine.cfg.bos_token_id] + self.tokenizer.encode(
             f"User: {content}\n\nAssistant:")
 

@@ -1,5 +1,5 @@
-"""Greedy generation for DeepSeek-V2 over a latent cache, with the decode
-step captured as a CUDA graph.
+"""Greedy generation for the language models (DeepSeek-V2, Kimi-Linear)
+over their caches, with the decode step captured as a CUDA graph.
 
 ``Engine.generate`` takes groups of prompts: the rows of a group share the
 longest prefix their prompts have in common (a transcript asked for a
@@ -7,7 +7,12 @@ summary and for notes), which is prefilled once, in chunks of at most
 ``CHUNK_TOKENS`` tokens packed across groups, into the group's prefix
 cache.  Each row then prefills the rest of its prompt into a cache of its
 own (the absorbed form, a few tokens) and decodes greedily to its cap or
-EOS.
+EOS.  A model with KDA layers (Kimi-Linear) keeps two kinds of state side
+by side: latent caches for its MLA layers only, and for its KDA layers a
+fixed state and convolution window a sequence (``kda.States``): a
+group's, carried across the prefix's chunks, then copied into each of its
+rows (the fork) before the row's own prompt; the rows' states are updated
+in place by every step.
 
 The rows of one call share a *session*: fixed-capacity caches (the
 prefix's rounded up to ``CACHE_BLOCK`` tokens, the rows' to
@@ -29,17 +34,26 @@ device), ``llm.decode.cache_tokens`` (the valid latent tokens the steps
 had to read: a group's prefix once a step while any of its rows decodes,
 and each decoding row's own tokens) and, on the card,
 ``llm.decode.card_us`` (the steps' time on the card, from CUDA events).
+With KDA layers also the span ``llm.prefill.fork`` and the counters
+``llm.kda.prefill_tokens`` (tokens through the chunked form, once a token),
+``llm.kda.forks`` (rows given their group's state) and
+``llm.kda.state_bytes`` (the KDA states and windows the steps read and
+wrote, summed on the device over the active rows, added once a call).
 """
 from __future__ import annotations
 
+import logging
 import threading
 from collections import OrderedDict
 
 import torch
 
 from ...runtime import trace
+from . import kda
 from . import model as M
 from .config import DeepseekV2Config
+
+logger = logging.getLogger(__name__)
 
 CHUNK_TOKENS = 8192    # prefill tokens a chunk at most
 CACHE_BLOCK = 2048     # the prefix caches' capacities are multiples of this
@@ -81,14 +95,19 @@ def _chunks(lengths: list[int], limit: int):
 
 
 class _Session:
-    """The state of G groups of K rows at fixed capacities."""
+    """The state of G groups of K rows at fixed capacities: the groups'
+    prefix caches ``pc`` and KDA ``prefix_states`` (shared by the sessions
+    of one prefix buffer), the rows' own caches and states."""
 
-    def __init__(self, engine: "Engine", pc: torch.Tensor, K: int, cap_s: int):
+    def __init__(self, engine: "Engine", pc: torch.Tensor, prefix_states, K: int, cap_s: int):
         cfg, dev = engine.cfg, engine.device
         G = pc.shape[1]
         R = G * K
         self.engine, self.pc, self.G, self.K, self.R = engine, pc, G, K, R
-        self.sc = pc.new_zeros(cfg.num_hidden_layers, R, cap_s, cfg.latent_dim)
+        self.prefix_states = prefix_states
+        self.states = (kda.States.zeros(cfg, R, pc.dtype, dev) if prefix_states is not None
+                       else None)
+        self.sc = pc.new_zeros(cfg.mla_layers, R, cap_s, cfg.latent_dim)
         self.plen = torch.zeros(G, dtype=torch.long, device=dev)
         self.tok = torch.zeros(R, dtype=torch.long, device=dev)
         self.slen = torch.zeros(R, dtype=torch.long, device=dev)
@@ -97,19 +116,30 @@ class _Session:
         self.active = torch.zeros(R, dtype=torch.bool, device=dev)
         self.out = torch.zeros(R, cap_s, dtype=torch.long, device=dev)
         self.touched = torch.zeros((), dtype=torch.long, device=dev)
+        self.kda_bytes = torch.zeros((), dtype=torch.long, device=dev)
         self._rows = torch.arange(R, device=dev)
         self.graph = None
         if engine.graphs:
             self._capture()
 
     def _state(self):
-        return (self.tok, self.slen, self.gen, self.cap, self.active, self.out, self.touched)
+        state = (self.tok, self.slen, self.gen, self.cap, self.active, self.out, self.touched)
+        return state if self.states is None else state + (self.kda_bytes,)
+
+    def fork(self) -> None:
+        """Each row's KDA state and windows from its group's."""
+        K, p = self.K, self.prefix_states
+        self.states.state.copy_(p.state.repeat_interleave(K, dim=1))
+        self.states.win.copy_(p.win.repeat_interleave(K, dim=1))
 
     def step(self) -> None:
         """One greedy step of every row, all on the device (eager)."""
         e = self.engine
+        if self.states is not None:
+            self.kda_bytes.add_(self.active.sum() * (2 * self.states.row_bytes()))
         h, touched = M.forward_rows(e.params, e.cfg, self.tok[:, None], self.active[:, None],
-                                    self.pc, self.plen, self.sc, self.slen, e.inv_freq)
+                                    self.pc, self.plen, self.sc, self.slen, e.inv_freq,
+                                    states=self.states, mesh=e.mesh)
         nxt = M.logits(e.params, e.cfg, h[:, 0]).argmax(-1)
         act = self.active
         at = self.gen.clamp(max=self.out.shape[1] - 1)
@@ -124,7 +154,8 @@ class _Session:
     def _capture(self) -> None:
         """Capture ``step`` once; a warm-up step first, on a side stream,
         with the state put back after it (its cache writes land where the
-        rows' prompts will be written)."""
+        rows' prompts will be written, its KDA writes where the fork will
+        copy)."""
         saved = [t.clone() for t in self._state()]
         side = torch.cuda.Stream(self.engine.device)
         side.wait_stream(torch.cuda.current_stream(self.engine.device))
@@ -147,12 +178,22 @@ class _Session:
 class Engine:
     """Greedy generation with one model's weights on one device."""
 
-    def __init__(self, params: dict, cfg: DeepseekV2Config, device):
-        self.params, self.cfg, self.device = params, cfg, torch.device(device)
+    def __init__(self, params: dict, cfg: DeepseekV2Config, device, mesh=None):
+        """``mesh``: the (data, model) mesh whose model group shares the
+        routed experts (``cfg.expert_range`` is this rank's share); every
+        rank of the group runs the same calls."""
+        self.params, self.cfg, self.device, self.mesh = params, cfg, torch.device(device), mesh
+        e0, e1 = cfg.expert_range
+        if (e0, e1) != (0, cfg.n_routed_experts) and (mesh is None or mesh.tp == 1):
+            logger.warning(
+                "%s holds experts %d-%d of each layer's %d and no mesh holds the others: "
+                "a token's picks among them add nothing, so this one card computes only its "
+                "share of the model", cfg.name, e0, e1 - 1, cfg.n_routed_experts)
         self.graphs = self.device.type == "cuda"
-        self.inv_freq = M.yarn_inv_freq(cfg).to(self.device)
+        self.inv_freq = M.yarn_inv_freq(cfg).to(self.device) if cfg.rope else None
         self.dtype = params["embed"].dtype
-        self._buffers: OrderedDict = OrderedDict()   # (G, prefix capacity) -> prefix cache
+        # (G, prefix capacity) -> (prefix cache, the groups' KDA states or None)
+        self._buffers: OrderedDict = OrderedDict()
         self._sessions: OrderedDict = OrderedDict()  # (G, K, prefix cap, suffix cap) -> _Session
         self._lock = threading.Lock()
 
@@ -167,10 +208,12 @@ class Engine:
                 old, _ = self._buffers.popitem(last=False)
                 for k in [k for k in self._sessions if (k[0], k[2]) == old]:
                     del self._sessions[k]
-            self._buffers[(G, cap_p)] = torch.zeros(
-                self.cfg.num_hidden_layers, G, cap_p, self.cfg.latent_dim, dtype=self.dtype,
-                device=self.device)
-        sess = self._sessions[key] = _Session(self, self._buffers[(G, cap_p)], K, cap_s)
+            self._buffers[(G, cap_p)] = (
+                torch.zeros(self.cfg.mla_layers, G, cap_p, self.cfg.latent_dim, dtype=self.dtype,
+                            device=self.device),
+                kda.States.zeros(self.cfg, G, self.dtype, self.device)
+                if self.cfg.kda_layers else None)
+        sess = self._sessions[key] = _Session(self, *self._buffers[(G, cap_p)], K, cap_s)
         return sess
 
     def generate(self, groups: list[list[list[int]]], caps: list[list[int]]) -> list:
@@ -201,12 +244,21 @@ class Engine:
         with trace.span("llm.prefill"):
             trace.count("llm.prefill_tokens", sum(plens) + sum(len(r) for r in rows))
             self._prefill_prefixes(sess, groups, plens)
+            if sess.states is not None:
+                with trace.span("llm.prefill.fork"):
+                    sess.fork()
+                trace.count("llm.kda.forks", G * K)
+                scanned = sum(plens) + (sum(len(r) for r in rows) if max(map(len, rows)) > 1
+                                        else 0)
+                trace.count("llm.kda.prefill_tokens", scanned)
             self._prefill_rows(sess, rows, plens, flat_caps)
             live = bool(sess.active.any())  # the prefill's one read-back
         steps = self._decode(sess, max(flat_caps) - 1) if live else 0
         out, gen = sess.out.cpu(), sess.gen.cpu()
         if steps:
             trace.count("llm.moe.experts_touched", int(sess.touched))
+            if sess.states is not None:
+                trace.count("llm.kda.state_bytes", int(sess.kda_bytes))
             n = gen.tolist()
             tokens = sum((n[r] - 1) * len(rows[r]) + (n[r] - 1) * n[r] // 2 for r in range(G * K))
             tokens += sum(plens[g] * (max(n[g * K:(g + 1) * K]) - 1) for g in range(G))
@@ -216,7 +268,11 @@ class Engine:
 
     def _prefill_prefixes(self, sess: _Session, groups, plens) -> None:
         """The groups' shared prefixes into the prefix cache, in chunks of
-        at most ``CHUNK_TOKENS`` tokens that pack segments of groups."""
+        at most ``CHUNK_TOKENS`` tokens that pack segments of groups; the
+        groups' KDA states start from zero."""
+        if sess.prefix_states is not None:
+            sess.prefix_states.state.zero_()
+            sess.prefix_states.win.zero_()
         for chunk in _chunks(plens, CHUNK_TOKENS):
             ids, segs, s = [], [], 0
             for g, a, b in chunk:
@@ -225,7 +281,7 @@ class Engine:
                 s += b - a
             M.prefill_chunk(self.params, self.cfg, sess.pc,
                             torch.tensor(ids, dtype=torch.long, device=self.device), segs,
-                            self.inv_freq)
+                            self.inv_freq, states=sess.prefix_states, mesh=self.mesh)
 
     def _prefill_rows(self, sess: _Session, rows, plens, caps) -> None:
         """Each row's own prompt after its group's prefix (absorbed form),
@@ -244,7 +300,8 @@ class Engine:
         per_group = sess.K * S * self.cfg.num_attention_heads * cap_all * 8
         h, _ = M.forward_rows(self.params, self.cfg, tok, valid, sess.pc, sess.plen, sess.sc,
                               sess.slen, self.inv_freq,
-                              group_block=max(1, ATTN_BLOCK_BYTES // per_group))
+                              group_block=max(1, ATTN_BLOCK_BYTES // per_group),
+                              states=sess.states, lengths=[len(r) for r in rows], mesh=self.mesh)
         first = M.logits(self.params, self.cfg, h[sess._rows, n - 1]).argmax(-1)
         sess.tok.copy_(first)
         sess.slen.copy_(n)
@@ -254,6 +311,8 @@ class Engine:
         sess.out[:, 0] = first
         sess.active.copy_((first != self.cfg.eos_token_id) & (sess.cap > 1))
         sess.touched.zero_()
+        if sess.states is not None:
+            sess.kda_bytes.zero_()
 
     def _decode(self, sess: _Session, max_steps: int) -> int:
         """Steps until every row is done; returns the steps run."""

@@ -369,9 +369,10 @@ def build_services(
         from ..integrations.gemini import GeminiClient
         from ..integrations.notion import NotionClient
 
-        # APTPU_LOCAL_LLM=<preset> (models/llm/config.py, e.g.
-        # deepseek-v2-lite): the speaker, summary and notes stages run on
-        # this process's device instead of Gemini's API
+        # APTPU_LOCAL_LLM=<preset> (models/llm/config.py: deepseek-v2-lite,
+        # or kimi-linear-48b-a3b, whose one card holds half of each layer's
+        # experts): the speaker, summary and notes stages run on this
+        # process's device instead of Gemini's API
         local = os.environ.get("APTPU_LOCAL_LLM")
         if local:
             from ..integrations.local_llm import LocalLLMClient

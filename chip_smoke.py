@@ -4,6 +4,7 @@
     python3 chip_smoke.py --tp-only       # sharded serving alone, e.g. on a card per rank
     python3 chip_smoke.py --probes-only   # the build and kernel B's design probes alone
     python3 chip_smoke.py --int8-only     # the build, kernel #3 and its bench line alone
+    python3 chip_smoke.py --kda-only      # the KDA kernels (Triton) and their path alone
 
 Builds the port's CUDA kernels from ``audio_processor_tpu_torch/csrc`` (one
 nvcc per source, all at once), holds each against its plain PyTorch version
@@ -655,6 +656,112 @@ def phase_cross_attn_int4_single(dev, kernels) -> dict:
     return {"phase": "cross_attn_int4_single", "batch": b, "max_abs_err": err,
             "kernel_device_ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
             "bound_by": by}
+
+
+def phase_kda(dev, kernels) -> dict:
+    """The KDA kernels (``ops/kernels/kda.py``) at Kimi-Linear's shapes:
+    ``kda_chunk_state`` on one 8,192-token prefill chunk packed with two
+    segments (32 heads of 128, states carried in from nonzero values), and
+    ``kda_step`` on 4 rows and on 8 rows of which 3 are finished, each held
+    to its plain version on the same inputs and timed beside it and its
+    bound; then the path: the tiny Kimi-Linear's ``Engine`` in bfloat16 on
+    the card, a prefix forked into two rows and decoded (chunked prefill,
+    fork, the captured step), its launches counted from zero (a launch
+    from the host; a graph's replays are not counted)."""
+    from audio_processor_tpu_torch.models.llm import checkpoint, kda
+    from audio_processor_tpu_torch.models.llm.config import get_config
+    from audio_processor_tpu_torch.models.llm.generate import Engine
+    from audio_processor_tpu_torch.ops.kernels import kda as kk
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    H, D = 32, 128
+
+    def inputs(t):
+        q = kda.l2norm(torch.randn(t, H, D, device=dev, generator=g)) * D ** -0.5
+        k = kda.l2norm(torch.randn(t, H, D, device=dev, generator=g))
+        v = torch.randn(t, H, D, device=dev, generator=g)
+        decay = -torch.rand(t, H, D, device=dev, generator=g) * 2
+        beta = torch.rand(t, H, device=dev, generator=g)
+        return q, k, v, decay, beta
+
+    def err_of(got, want):
+        return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+    out = {"phase": "kda", "heads": H, "head_dim": D}
+    # prefill: two segments (slots 1 and 0) of one 8,192-token chunk
+    T = 8192
+    q, k, v, decay, beta = inputs(T)
+    p = kda.plan([(1, 0, 5000), (0, 5000, T)], 2, 4, dev)
+    ins = kda.chunk_inputs(q, k, v, decay, beta, p)
+    s0 = torch.randn(2, H, D, D, device=dev, generator=g) * 0.05
+    sa, sb = s0.clone(), s0.clone()
+    got = kk.kda_chunk_state(*ins, p.first, p.end, p.slot, sa)
+    want = kk.kda_chunk_state_reference(*ins, p.first, p.end, p.slot, sb)
+    e_out, e_state = err_of(got, want), err_of(sa, sb)
+    if not max(e_out, e_state) <= 1e-5:
+        fail(f"kda_chunk_state: relative error {e_out} (output), {e_state} (state) > 1e-5")
+    per = H * T  # (token, head) pairs
+    bms, by = bound_ms(per * 4 * (5 * D + 64 + 2), per * (6 * D * D + 64 * D), PEAK_BF16_FLOPS)
+    st = s0.clone()
+    ms = time_ms(lambda: kk.kda_chunk_state(*ins, p.first, p.end, p.slot, st), iters=20)
+    plain = time_ms(lambda: kk.kda_chunk_state_reference(*ins, p.first, p.end, p.slot, st),
+                    iters=2, warmup=1)
+    out["chunk_state"] = dict(tokens=T, segments=2, max_rel_err_out=e_out,
+                              max_rel_err_state=e_state, kernel_ms=ms, plain_ms=plain,
+                              bound_ms=bms, bound_by=by)
+    # decode: 4 rows, and 8 rows of which 3 are finished
+    steps = {}
+    for R, act in ((4, [1, 1, 1, 1]), (8, [1, 1, 0, 1, 0, 1, 1, 0])):
+        q, k, v, decay, beta = (t.contiguous() for t in inputs(R))
+        active = torch.tensor(act, dtype=torch.bool, device=dev)
+        s0 = torch.randn(R, H, D, D, device=dev, generator=g) * 0.05
+        sa, sb = s0.clone(), s0.clone()
+        got = kk.kda_step(q, k, v, decay, beta, active, sa)
+        want = kk.kda_step_reference(q, k, v, decay, beta, active, sb)
+        e_out, e_state = err_of(got, want), err_of(sa, sb)
+        if not max(e_out, e_state) <= 1e-5:
+            fail(f"kda_step R={R}: relative error {e_out} (output), {e_state} (state) > 1e-5")
+        n_act = sum(act)
+        bms, by = bound_ms(n_act * H * 4 * (2 * D * D + 5 * D + 1), n_act * H * 6 * D * D,
+                           PEAK_FP32_FLOPS)
+        st = s0.clone()
+        steps[f"rows_{R}"] = dict(
+            active=n_act, max_rel_err_out=e_out, max_rel_err_state=e_state,
+            kernel_ms=device_ms(lambda: kk.kda_step(q, k, v, decay, beta, active, st), 50),
+            plain_ms=time_ms(lambda: kk.kda_step_reference(q, k, v, decay, beta, active,
+                                                           st.clone()), iters=20),
+            bound_ms=bms, bound_by=by)
+    out["step"] = steps
+    # the path: chunked prefill across chunks, the fork, the captured step
+    cfg = get_config("tiny-kimi")
+    eng = Engine(checkpoint.random_params(cfg, 26, dev, torch.bfloat16), cfg, dev)
+    shared = [int(x) for x in torch.randint(1, 400, (300,), generator=torch.Generator().manual_seed(26))]
+    for name in kk.launches:
+        kk.launches[name] = 0
+    with torch.inference_mode():
+        gens = eng.generate([[shared + [1, 2, 3], shared + [4]]], [[12, 7]])
+    torch.cuda.synchronize()
+    launches = dict(kk.launches)
+    if not all(launches.values()) or [len(x) for x in gens[0]] != [12, 7]:
+        fail(f"kda: the tiny Kimi-Linear path launched {launches}, "
+             f"generated {[len(x) for x in gens[0]]} tokens of 12 and 7")
+    out["path"] = dict(model="tiny-kimi", prefix_tokens=len(shared), rows=2, launches=launches)
+    kernels["kda_chunk_state"] = dict(
+        name="kda_chunk_state", route="triton", source="audio_processor_tpu_torch/ops/kernels/kda.py",
+        replaces="none (Kimi-Linear's KDA; the JAX package has no language model)",
+        max_abs_err=out["chunk_state"]["max_rel_err_out"], ms=out["chunk_state"]["kernel_ms"],
+        plain_ms=out["chunk_state"]["plain_ms"], bound_ms=out["chunk_state"]["bound_ms"],
+        bound_by=out["chunk_state"]["bound_by"], launches=launches["kda_chunk_state"],
+        shape=f"{T} tokens in 2 segments, {H} heads of {D}")
+    kernels["kda_step"] = dict(
+        name="kda_step", route="triton", source="audio_processor_tpu_torch/ops/kernels/kda.py",
+        replaces="none (Kimi-Linear's KDA; the JAX package has no language model)",
+        max_abs_err=max(s["max_rel_err_out"] for s in steps.values()),
+        ms=steps["rows_8"]["kernel_ms"], plain_ms=steps["rows_8"]["plain_ms"],
+        bound_ms=steps["rows_8"]["bound_ms"], bound_by=steps["rows_8"]["bound_by"],
+        ms_rows_4=steps["rows_4"]["kernel_ms"], bound_ms_rows_4=steps["rows_4"]["bound_ms"],
+        launches=launches["kda_step"], shape=f"8 rows (5 active), {H} heads of {D}")
+    return out
 
 
 def check_config():
@@ -3926,6 +4033,8 @@ def main(argv: list[str] | None = None) -> None:
                          "held to (on a machine with a card per rank: the NCCL worlds)")
     ap.add_argument("--probes-only", action="store_true",
                     help="run only the build (its SASS gates) and the probes phase")
+    ap.add_argument("--kda-only", action="store_true",
+                    help="run only the KDA kernels' phase (Triton: no nvcc build)")
     ap.add_argument("--int8-only", action="store_true",
                     help="run only the build, kernel #3's phase and the int8-kernel bench "
                          "line at B=32, profiled")
@@ -3952,6 +4061,15 @@ def main(argv: list[str] | None = None) -> None:
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
+    if args.kda_only:
+        kda_kernels: dict[str, dict] = {}
+        emit(phase_kda(dev, kda_kernels))
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        print(card, flush=True)
+        emit({"kernels": list(kda_kernels.values())})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     logs = build.build(["log_mel", "cross_attn_int8"] if args.int8_only else
@@ -4027,6 +4145,7 @@ def main(argv: list[str] | None = None) -> None:
     emit(phase_cross_attn_tp(dev, kernels))
     torch.cuda.empty_cache()
     emit(phase_probes(dev, kernels))
+    emit(phase_kda(dev, kernels))
     emit(phase_check(dev))
     # kernels #4 and #5 are on no single-card path: their counters are
     # zeroed and read beside the others

@@ -171,7 +171,7 @@ def test_detect_bytes_are_a_float32_cross_cache_of_detect_rows():
 
 def test_llm_card_bytes_are_its_weights_and_its_work():
     assert LocalLLMClient.card_bytes("deepseek-v2-lite") == pytest.approx(
-        2 * 15_706_484_224 + LocalLLMClient.work_bytes)
+        2 * 15_706_484_224 + 12 * 10**9)
 
 
 def test_cpu_mesh_and_explicit_caps(on_card, monkeypatch):
